@@ -13,11 +13,17 @@ does this so every example runs end-to-end in seconds).
 """
 
 import os
+import tempfile
 
 import numpy as np
 
+from neilpy_tpu.backend import enable_compile_cache
+
+enable_compile_cache()
+
 FAST = os.environ.get("EXAMPLE_FAST", "") == "1"
-OUT = os.environ.get("OUT_DIR", "/tmp/neilpy_tpu_examples")
+OUT = os.environ.get("OUT_DIR", os.path.join(tempfile.gettempdir(),
+                                             "neilpy_tpu_examples"))
 os.makedirs(OUT, exist_ok=True)
 
 

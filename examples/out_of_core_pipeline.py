@@ -5,7 +5,7 @@ The reference's biggest-raster story is `apply_parallel` over an
 in-RAM array (test_neilpy.py:35-47) and its lidar story materializes
 the whole cloud (read_las -> smrf -> laspy rewrite, the "SMRF
 Classification using laspy" notebook).  This example shows the
-TPU-native equivalents for inputs that do NOT fit in memory:
+Device-side equivalents for inputs that do NOT fit in memory:
 
 1. a (Big)TIFF DEM streamed straight FROM DISK through the fused
    mosaic kernel via `GeoTiffSource` windowed reads (only the

@@ -6,12 +6,12 @@ not shipped) is too big to classify in one call on the author's CPU,
 so it runs ``apply_parallel(geomorphons_wrapper, Z, 1000,
 lookup_pixels)`` — moving-window tiles with a lookup-radius halo —
 then writes a paletted PNG + worldfile.  (Reference wall-clock: 42 min
-whole-array, 26 min tiled; the fused TPU kernel does the same work in
-~a quarter second.)
+whole-array, 26 min tiled; the fused ladder kernel on the GPU is not
+measured at this size yet.)
 
 This port runs the identical tiled call on a synthetic mountain DEM,
 asserts the tiled result equals the untiled one inside the documented
-halo contract, and writes the same outputs.  On the TPU, prefer
+halo contract, and writes the same outputs.  On the GPU, prefer
 ``mosaic_terrain_products`` / ``sharded_geomorphons`` for real mosaics
 — ``apply_parallel`` is the notebook-compatible surface.
 

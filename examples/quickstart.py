@@ -2,7 +2,7 @@
 
 Mirrors the reference's example notebooks (SMRF classification,
 geomorphon/terrain visualization, big-raster tiling) as one runnable
-script.  Works on CPU or TPU; point ISPRS_DIR somewhere containing the
+script.  Works on CPU or GPU; point ISPRS_DIR somewhere containing the
 ISPRS ``samp*.txt`` clouds (tab-separated x y z label) or let the
 synthetic fallback run.
 
@@ -11,14 +11,19 @@ synthetic fallback run.
 
 import os
 import sys
+import tempfile
 
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import neilpy_tpu as nt
+from neilpy_tpu.backend import enable_compile_cache
+
+enable_compile_cache()
 
 ISPRS_DIR = os.environ.get("ISPRS_DIR", "/root/reference/sample_data")
-OUT = os.environ.get("OUT_DIR", "/tmp/neilpy_tpu_quickstart")
+OUT = os.environ.get("OUT_DIR", os.path.join(tempfile.gettempdir(),
+                                             "neilpy_tpu_quickstart"))
 os.makedirs(OUT, exist_ok=True)
 
 

@@ -154,7 +154,7 @@ print("Total Error:   ", 100 * total_error)
 print("Cohen's Kappa: ", 100 * kappa)
 
 # stored notebook outputs: 2.006 / 4.125 / 3.091 / 93.81 (f64 CPU);
-# the f32 TPU-shaped pipeline lands within a few thousandths
+# the f32 device pipeline lands within a few thousandths
 assert abs(100 * total_error - 3.091) < 0.05, total_error
 assert abs(100 * type_I_error - 2.006) < 0.15, type_I_error
 assert abs(100 * type_II_error - 4.125) < 0.25, type_II_error

@@ -1,17 +1,17 @@
-"""neilpy_tpu — a TPU-native terrain analysis and lidar point-cloud
-processing framework built on JAX/XLA/Pallas.
+"""neilpy_tpu — a terrain analysis and lidar point-cloud processing
+framework built on JAX/XLA/Pallas.
 
 A from-scratch rebuild of the capabilities of ``neilpy``
-(thomaspingel/neilpy) with a TPU-first architecture: fused stencil
+(thomaspingel/neilpy) with an accelerator-first architecture: fused stencil
 scans for openness/geomorphons, scatter-reduce point gridding,
 matrix-free CG inpainting, exact disk morphology for SMRF, moment-form
-bicubic splines, MXU convolutions for raster statistics, and a
-shard_map halo-exchange layer for multi-chip meshes — plus its own
+bicubic splines, sliding-sum raster statistics, and a
+shard_map halo-exchange layer for multi-device meshes — plus its own
 pure-Python GeoTIFF/LAS/worldfile I/O and a numpy projection engine.
 
 The public namespace mirrors the reference's API surface
 (reference neilpy/__init__.py:1) so existing neilpy workflows port
-directly, and adds the TPU-native extensions (Raster, halo/dist,
+directly, and adds its own extensions (Raster, halo/dist,
 Moran's I, bench kernels).
 """
 
@@ -102,9 +102,9 @@ del _os
 # ----- observability ---------------------------------------------------
 from .profiling import Throughput, trace, compile_report
 
-# ----- runtime: persistent compiled-executable cache -------------------
-from . import aot
+# ----- runtime: backend choices and the opt-in executable cache --------
+from . import aot, backend
 
-# ----- multi-chip / out-of-core ---------------------------------------
+# ----- multi-device / out-of-core ---------------------------------------
 from . import dist
 from .pipelines.mosaic import mosaic_terrain_products

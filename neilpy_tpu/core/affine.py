@@ -1,6 +1,6 @@
 """Pure-Python affine georeferencing transform.
 
-TPU-native replacement for the small slice of ``rasterio.transform`` /
+Replacement for the small slice of ``rasterio.transform`` /
 ``affine.Affine`` the reference library relies on (reference:
 neilpy/neilpy.py:1141 ``rasterio.transform.from_origin``, neilpy.py:1142
 ``~t * (x, y)``, neilpy.py:1564-1570 worldfile writing).
@@ -16,7 +16,7 @@ which matches the rasterio/affine convention, including element ordering
 
 All arithmetic is float64 on host: georeferencing is precision-critical
 (UTM coordinates ~1e5-1e6 with sub-metre cells), so index computation is
-never pushed through the TPU f32 path.  Only bulk per-point work is.
+never pushed through the f32 device path.  Only bulk per-point work is.
 """
 
 from __future__ import annotations

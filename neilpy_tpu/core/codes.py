@@ -123,7 +123,7 @@ def disk_run_halfwidths(radius):
     """Per-row half-widths of the disk footprint: for each dy in
     [-r, r], the horizontal run is [-kx, kx] with
     kx = floor(sqrt(r^2 - dy^2)).  This exact row-run decomposition is
-    what the TPU morphology kernels use (ops/morphology.py)."""
+    what the morphology kernels use (ops/morphology.py)."""
     radius = int(radius)
     dys = np.arange(-radius, radius + 1)
     kxs = np.floor(np.sqrt(radius ** 2 - dys.astype(np.float64) ** 2) + 1e-9)

@@ -1,7 +1,7 @@
 """Raster container and small grid utilities.
 
 The reference passes bare numpy arrays plus a separate affine transform
-everywhere; the TPU framework offers the same functional surface but
+everywhere; this framework offers the same functional surface but
 also a light ``Raster`` pytree so jitted pipelines can move a grid and
 its georeferencing together.
 """

@@ -6,7 +6,7 @@ pixels in one of 8 compass directions (clockwise from the upper-left),
 where positions whose source pixel falls outside the array *keep their
 original value* (NOT wrap, NOT zero, NOT edge-clamp).
 
-TPU-native design: a shift is expressed as ``jnp.roll`` (which XLA
+Design: a shift is expressed as ``jnp.roll`` (which XLA
 lowers to two static slices + concatenate) combined with a validity
 mask built from iotas.  This keeps every op statically shaped and
 fusible, and the same (rolled, valid) decomposition is what the fused

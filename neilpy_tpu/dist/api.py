@@ -1,9 +1,9 @@
 """Sharded (multi-chip) raster pipelines over a 2-D device mesh.
 
-This is the TPU-native replacement for the reference's
+This replaces the reference's
 ``apply_parallel(func, Z, tile_size, overlap)`` tiling
 (test_neilpy.py:45, SURVEY.md §2.5): the DEM lives sharded across the
-mesh, stencils run under ``shard_map`` after an ICI halo exchange sized
+mesh, stencils run under ``shard_map`` after a halo exchange sized
 by the stencil radius, and outputs stay sharded for downstream stages.
 The tiled==untiled property the reference trusted ``apply_parallel``
 to preserve is asserted by the test suite on a virtual CPU mesh.
@@ -20,6 +20,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from .halo import halo_exchange_2d, block_origin
+from ..backend import resolve_engine
 from ..ops.visibility import (directional_ratio_extrema,
                               _angles_from_extrema, classes_from_counts)
 
@@ -103,7 +104,7 @@ def _sharded_counts(Zs, mesh, cellsize, lookup_pixels, threshold_angle,
         return (num_pos[r:r + bh, r:r + bw], num_neg[r:r + bh, r:r + bw])
 
     spec = P(*axis_names)
-    # check_vma=False: the pallas interpret-mode DMA mixes varying and
+    # check_vma=False: the interpreted pallas_call mixes varying and
     # unvarying operands in a dynamic_slice, which the vma checker
     # cannot type yet (it suggests this workaround itself)
     return shard_map(local, mesh=mesh, in_specs=(spec,),
@@ -117,14 +118,13 @@ def sharded_geomorphons(Z, mesh=None, cellsize=1, lookup_pixels=1,
     multi-chip analog of ``geomorphons`` (bit-identical to the
     single-device kernel; asserted in tests).
 
-    ``engine='auto'`` uses the Pallas VMEM-ladder kernel per shard on
-    the TPU backend (halo exchange feeds it real neighbour data), the
-    XLA scan otherwise.
+    ``engine='auto'`` uses the Pallas ladder kernel per shard on the
+    GPU (halo exchange feeds it real neighbour data), the XLA scan
+    otherwise.
     """
     if mesh is None:
         mesh = make_mesh()
-    if engine == "auto":
-        engine = "pallas" if jax.default_backend() == "tpu" else "xla"
+    engine = resolve_engine(engine)
     Zp, orig = pad_to_mesh(jnp.asarray(Z, dtype=jnp.float32), mesh,
                            axis_names)
     spec = P(*axis_names)

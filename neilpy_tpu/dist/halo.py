@@ -2,7 +2,7 @@
 scaling story.
 
 The reference scales big rasters with ``skimage.util.apply_parallel``
-(tile-wise map with overlap, SURVEY.md §2.5); the TPU equivalent is a
+(tile-wise map with overlap, SURVEY.md §2.5); the equivalent here is a
 2-D ``jax.sharding.Mesh`` with each chip holding one block of the DEM
 and stencil kernels running under ``shard_map`` after an explicit halo
 exchange sized by the stencil radius.  Collectives ride ICI

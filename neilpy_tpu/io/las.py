@@ -17,9 +17,8 @@ from __future__ import annotations
 import struct
 
 import numpy as np
-import pandas as pd
 
-__all__ = ["read_las", "write_las", "las_point_dtype"]
+__all__ = ["read_las", "read_las_columns", "write_las", "las_point_dtype"]
 
 # scan_angle is SIGNED per the LAS spec (i1 "Scan Angle Rank"
 # -90..+90 legacy; <i2 extended, 0.006-degree units) — the reference
@@ -83,6 +82,14 @@ def read_las(filename):
     reference: it is decoded SIGNED per the LAS spec (see the core
     dtype note above).
     """
+    import pandas as pd
+    hdr, cols = read_las_columns(filename)
+    return hdr, pd.DataFrame(cols)
+
+
+def read_las_columns(filename):
+    """``read_las`` without pandas: (header dict, dict of numpy
+    columns) with the same keys and values as the DataFrame."""
     with open(filename, "rb") as f:
         data = f.read()
 
@@ -157,11 +164,11 @@ def read_las(filename):
         count = len(raw) // record_len
     pts = np.frombuffer(raw, dtype=dt, count=count)
 
-    df = pd.DataFrame({name: pts[name] for name in pts.dtype.names})
+    df = {name: pts[name] for name in pts.dtype.names}
     for axis, col in enumerate("xyz"):
         df[col] = df[col] * hdr["scale"][axis] + hdr["offset"][axis]
 
-    rb = df["return_byte"].to_numpy()
+    rb = df.pop("return_byte")
     if pdrf < 6:
         df["return_number"] = (rb & 0b111).astype(np.uint8)
         df["return_max"] = ((rb >> 3) & 0b111).astype(np.uint8)
@@ -170,7 +177,7 @@ def read_las(filename):
     else:
         df["return_number"] = (rb & 0b1111).astype(np.uint8)
         df["return_max"] = ((rb >> 4) & 0b1111).astype(np.uint8)
-        mb = df["mixed_byte"].to_numpy()
+        mb = df.pop("mixed_byte")
         df["classification_bit_synthetic"] = _bit(mb, 0)
         df["classification_bit_keypoint"] = _bit(mb, 1)
         df["classification_bit_withheld"] = _bit(mb, 2)
@@ -178,9 +185,6 @@ def read_las(filename):
         df["scanner_channel"] = ((mb >> 4) & 0b11).astype(np.uint8)
         df["scan_direction"] = _bit(mb, 6)
         df["edge_of_flight_line"] = _bit(mb, 7)
-        del df["mixed_byte"]
-    del df["return_byte"]
-
     return hdr, df
 
 

@@ -1,12 +1,12 @@
-"""Grayscale morphology with disk structuring elements, TPU-native.
+"""Grayscale morphology with disk structuring elements on the device.
 
 Reference dependency: SMRF's progressive filter calls
 ``skimage.morphology.opening(surface, disk(w))`` for w = 1..18
 (neilpy/neilpy.py:1667-1670), which is scipy ``grey_erosion`` followed
 by ``grey_dilation`` with reflect boundary handling.
 
-TPU-native design
------------------
+Design
+------
 A disk is not separable, but it decomposes *exactly* into horizontal
 runs: for each row offset dy the footprint covers [-kx(dy), kx(dy)]
 with kx = floor(sqrt(r^2 - dy^2)).  Erosion therefore factors as

@@ -1,100 +1,34 @@
-"""Pallas TPU kernel for the openness / geomorphon directional scan.
+"""Pallas ladder kernel for openness, skyview, ternary codes and
+geomorphons, compiled for the GPU through Triton.
 
-The XLA scan in ops/visibility.py re-reads the whole DEM from HBM for
-every ladder step (lookup_pixels x 8 directions of roll traffic); this
-kernel blocks the DEM into VMEM tiles with a ``lookup_pixels``-wide
-halo and runs the entire ladder out of VMEM — HBM traffic drops to one
-read + one write per pixel, and the inner loop is pure VPU
-sub/mul/select/max on registers.
+The XLA engine (``ops.visibility.directional_ratio_extrema``) runs the
+ladder as 8 directions x R steps of whole-raster passes: every step
+reads a shifted plane, Z, mx and mn from device memory and writes mx
+and mn back (~24 B/px per step, ~9.6 KB/px at R=50).  This kernel
+computes each output block in one program instead:
 
-Layout: output tiles (TH, TW); for each tile the kernel DMAs the
-aligned-halo input window from HBM into VMEM scratch, then for
-L = 1..R accumulates, per direction, the running max/min of
-``(Z[p + d*L] - Z[p]) / (cellsize * |d| * L)`` over a CHUNKED ladder:
-a fori_loop rolls the window 8 unit steps per iteration and the 8
-intra-chunk reads are *static* shifted VMEM slices (Mosaic rejects
-dynamic sublane offsets; per-step whole-window rolls measured ~4x
-slower; a fully unrolled R=50 ladder blew the scoped-VMEM budget and
-took >30 min of Mosaic compile).  The input is NaN-padded, so
-out-of-DEM reads are skipped by a NaN-select, and the reference's
-edge-replication semantics (out-of-range step -> ratio exactly 0) are
-restored by one per-direction boundary correction.  The
-angle-threshold comparison happens exactly in tangent space (no atan
-anywhere), so count_openness/geomorphons agree with the XLA path
-everywhere except exact decision ties: on a 2048x4096 hardware check,
-6 of 8.4M pixels differed, every one with an f64 openness-difference
-margin < 6e-6 deg of the 1-deg threshold (the tangent-space vs
-atan-space rounding flips only true ties; both classes are defensible
-there).
+* one program per power-of-two output block ``(BH, BW)``; blocks are
+  independent, so thousands are in flight and nothing is carried from
+  one block to another;
+* the NaN-padded input stays unblocked: each ladder step loads its
+  shifted ``(BH, BW)`` window with ``pl.ds`` at a dynamic offset inside
+  a ``fori_loop`` (the windows a block revisits are served from L1/L2),
+  and the running ``mx``/``mn`` live in registers;
+* the epilogue is fused: the edge-replication correction, then either
+  the tangent-space threshold compare + direction counts (+ the J&S
+  class select), the openness / skyview / ternary reduction over the 8
+  directions, or the raw per-direction extrema.
 
-Measured on v5e (2048x4096, lookup=50, in-one-program timing): 23.1 ms
-= 363 Mpix/s at the default (256, 1024) tile, ~1800x the reference CPU
-throughput; Mosaic compile ~60 s (persistent-cached).  The 'fast'
-progressive ladder (reference neilpy.py:1314-1321: ~16 geometric L
-levels instead of 50) runs as fully unrolled static slices with no
-chunk rolls: 11.3 ms = 745 Mpix/s, classes equal to the XLA fast scan
-except f32 ties (3/8.4M); its Mosaic compile is ~7 min cold.  At
-10000x10000 (the reference's Poland workload scale, where interior
-tiles dominate): exact 242 ms = 413 Mpix/s, fast 95 ms = 1.05 Gpix/s
-on the single chip.
+Every ratio is computed exactly as the XLA engine computes it
+(``(src - Z) / (cellsize * w_d * L)`` in f32, NaN skipped by
+compare-select), so the extrema are bit-identical to the XLA scan.  The
+counts compare ``atan(-mn) - atan(mx)`` against the threshold exactly
+in tangent space, where the XLA engine compares rounded angles, so the
+two engines can differ only at f32 decision ties.
 
-Safety specialization: interior tiles whose full read window is real
-in-bounds terrain AND whose window is free of interior NaN (a per-tile
-NaN grid computed outside the kernel — nodata holes are common in real
-DEMs and the geometric test alone cannot see them) run one
-straight-line maskless body; boundary tiles take a per-direction
-``lax.cond``, so only the directions whose rays point off the raster
-pay the 3-extra-pass masked ladder.
-
-Roofline analysis (measured r2/r3 on v5e; see VERDICT items r1#3, r2#3)
------------------------------------------------------------------------
-The exact ladder's inner step is irreducibly 4 VPU ops over the tile:
-subtract, scale, running-max, running-min on a shifted-slice read
-(the 1/L weight varies per step, so neither van-Herk sharing nor
-prefix-scan composition applies to the exact J&S formulation).
-Production at R=50, 2048x4096, (256,1024) tiles: 22.5-22.8 ms
-(~370 Mpix/s; was 23.1 before the r3 compare-select extrema +
-cross-multiplied threshold trims).
-
-r3 controlled decomposition of the remaining gap (each variant
-compiled and timed on hardware, counts asserted equal where valid):
-
-- every tile forced down the straight-line maskless body: 19.04 ms
-  (440 Mpix/s) — the bound if raster-edge exactness were free; a
-  stripped probe without the classify stage adds ~0.5 ms of honesty
-  to the r2 "456 Mpix/s floor", so the safe body is AT its op floor.
-- one unconditional body (compare-select ladder + oob epilogue for
-  every tile, no pl.when/cond, results exactly == production):
-  25.04 ms.  jnp.maximum lowers to one VPU op, compare-select to
-  two — a single generic body costs the whole grid the masked
-  premium.
-- every tile forced down the per-direction-cond masked path:
-  25.57 ms.
-
-So the dynamic structure sits at a measured equilibrium: on the
-20/32 boundary tiles of this shape, per-direction conds save
-~(4.6/8 masked dirs) x 6.5 ms of masked work but pay ~2 ms of scf.if
-scheduling — which is why per-tile/per-direction/hybrid restructures
-all land within 0.4 ms.  The remaining exact-mode lever — built and
-measured in r4 — is the 9-patch STATIC specialization
-(``specialize=True`` / ``_region_calls``: separate pallas_calls per
-boundary region, each with its unsafe-direction set folded at compile
-time, so no scf.if anywhere): 2048x4096 measured 22.30 ms (376
-Mpix/s, from 23.66 dynamic that day) and 8192^2 145.5 ms (461
-Mpix/s, from 149.7), outputs bit-identical, and — decisive — the 9
-cond-free Mosaic programs compile in ~the same total server time as
-the one dynamic program (210 vs 224 s cold), so there is no compile
-tax; r3's projection of ~15-20 min assumed per-program cost equal to
-the cond-heavy dynamic kernel, which measurement disproved.  The
-persistent executable cache (``neilpy_tpu.aot``) makes even that
-one-time cost a per-machine, not per-process, event.  Throughput
-well above the ~440 maskless floor at this shape needs more chips
-(dist/halo.py shards this kernel bit-exactly), a raster where
-interior tiles dominate (8192^2 exact 461 Mpix/s specialized; fast
-58 ms = 1.15 Gpix/s), or the ``fast`` progressive ladder (745 Mpix/s
-measured).  Sweeps confirmed the operating point: tiles
-(512,1024)/(256,2048)/(128,1024) and chunk sizes 16/25 are all equal
-or worse than (256,1024)xCH=8.
+``pallas_call`` names the Triton route through its ``CompilerParams``.
+On the CPU the same kernel runs in Pallas interpret mode (tests);
+``backend.resolve_interpret`` refuses a compiled kernel there.
 """
 
 from __future__ import annotations
@@ -106,20 +40,31 @@ import jax
 import numpy as np
 import jax.numpy as jnp
 from jax import lax
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
+from ..backend import resolve_interpret
 from ..core.shift import OFFSETS, STEP_LENGTH
-
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    HAS_PALLAS = True
-except Exception:  # pragma: no cover
-    HAS_PALLAS = False
+from .visibility import classes_from_counts
 
 __all__ = ["openness_counts_pallas", "openness_counts_pallas_block",
            "directional_extrema_pallas", "geomorphons_pallas",
            "openness_pallas", "skyview_pallas", "ternary_pallas",
-           "HAS_PALLAS"]
+           "DEFAULT_BLOCK"]
+
+#: output block (rows, cols) and Triton warps per program
+DEFAULT_BLOCK = (32, 64)
+_NUM_WARPS = 4
+
+#: outputs per mode: (dtype, leading extra dim or None)
+_MODE_OUTPUTS = {
+    "extrema": ((jnp.float32, 8), (jnp.float32, 8)),
+    "counts": ((jnp.uint8, None), (jnp.uint8, None)),
+    "classes": ((jnp.uint8, None),),
+    "openness": ((jnp.float32, None), (jnp.float32, None)),
+    "svf": ((jnp.float32, None),),
+    "ternary": ((jnp.float32, None),),
+}
 
 
 def _fast_ladder(R, how_fast):
@@ -130,1048 +75,288 @@ def _fast_ladder(R, how_fast):
     return tuple(int(v) for v in progressive_window(1, R, how_fast))
 
 
-def _resolve_specialize(specialize, interpret, fast):
-    """Resolve ``specialize=None`` to the measured-best default: the
-    9-patch static boundary specialization ON for compiled exact
-    ladders (its 9 cond-free Mosaic programs compile in ~the same
-    total server time as the one dynamic program, and run +6-20%
-    faster), OFF in interpret mode (9x the Python-interpreter passes
-    for no gain) and for the unrolled ``fast`` ladder (~2x cold
-    compile; opt in explicitly — the persistent executable cache
-    makes it a one-time cost)."""
-    if specialize is None:
-        return (not interpret) and not fast
-    return bool(specialize)
+def _pow2_at_least(n):
+    return 1 << max(0, int(n) - 1).bit_length()
 
 
-def _extrema_ladder(win, core, rows, cols, d, *, TH, TW, R, RR, RC, H, W,
-                    cellsize, nan_safe=False, ladder=None):
-    """The chunked ladder for ONE direction (shared by the counts and
-    extrema kernels): returns (mx, mn) running extrema of the slope
-    ratios with the reference's edge-replication correction applied.
+def _block_for(shape, block):
+    """Clamp the requested power-of-two block to the raster so a small
+    input is not padded to a whole large block."""
+    BH, BW = block
+    for b in (BH, BW):
+        if b < 1 or b & (b - 1):
+            raise ValueError(f"block dims must be powers of two, got {block}")
+    return (min(BH, _pow2_at_least(shape[0])),
+            min(BW, _pow2_at_least(shape[1])))
 
-    ``nan_safe=True`` is the interior-tile fast path: the caller
-    guarantees every read of the window hits real in-bounds terrain, so
-    the per-step NaN select (3 VPU passes of the 8-pass step body) and
-    the edge-replication epilogue are skipped entirely.
 
-    ``ladder``: static tuple of L values for the 'fast' progressive
-    window (neilpy.py:1314-1321, 1341-1342).  The geometric ladder is
-    sparse (~16 steps at R=50 vs 50), so it is fully unrolled as
-    static shifted slices — no chunk rolls at all; ``None`` runs the
-    dense 1..R ladder via the chunked fori_loop."""
-    neg_inf = jnp.float32(-jnp.inf)
-    pos_inf = jnp.float32(jnp.inf)
-    dr, dc = OFFSETS[d]
-    inv_w = float(1.0 / (float(cellsize) * STEP_LENGTH[d]))
-    Rmax = int(ladder[-1]) if ladder is not None else R
+def _tangent_compare(mx, mn, T):
+    """(gt, lt): ``atan(a) - atan(b) > t`` and ``< -t`` for
+    ``a = -mn``, ``b = mx``, evaluated exactly in tangent space:
+    ``diff > t  <=>  (1+ab > 0) ? (a-b) > tan(t)(1+ab) : a > b``
+    (valid for 0 <= t < pi/2; |diff| > pi/2 iff 1+ab <= 0).  Unseen
+    directions (mx = -inf) compare False both ways."""
+    a = -mn
+    b = mx
+    denom = 1.0 + a * b
+    s = a - b
+    td = T * denom
+    wide = denom <= 0.0
+    narrow = denom > 0.0
+    seen = mx > -jnp.inf
+    gt = ((wide & (a > b)) | (narrow & (s > td))) & seen
+    lt = ((wide & (a < b)) | (narrow & (s < -td))) & seen
+    return gt, lt
 
-    def accum(win_d, mx, mn, base, l):
-        src = win_d[RR + dr * l:RR + dr * l + TH,
-                    RC + dc * l:RC + dc * l + TW]
-        Lf = base + jnp.float32(l)
-        ratio = (src - core) * (jnp.float32(inv_w) / Lf)
-        if nan_safe:
-            mx = jnp.maximum(mx, ratio)
-            mn = jnp.minimum(mn, ratio)
-        else:
-            # fmax/fmin-style compare-select: a NaN ratio (padding or
-            # nodata hole) fails both comparisons and is skipped — one
-            # op cheaper per accumulator than the isnan+select+max form
+
+def _ladder_kernel(org_ref, z_ref, *out_refs, BH, BW, R, H, W, cellsize,
+                   mode, threshold_deg, neg_mode, ladder):
+    """One output block: the 8-direction ladder plus the fused
+    epilogue of ``mode``.  ``z_ref`` is the whole NaN-padded raster
+    (R-wide frame, block-multiple bottom/right padding); ``org_ref``
+    holds the global (row, col) of this array's core origin, so a
+    shard's block applies the GLOBAL raster edge rule; (H, W) is the
+    global raster shape."""
+    i = pl.program_id(0)
+    j = pl.program_id(1)
+    r0 = i * BH
+    c0 = j * BW
+    core = z_ref[pl.ds(r0 + R, BH), pl.ds(c0 + R, BW)]
+    rows = lax.broadcasted_iota(jnp.int32, (BH, BW), 0) + (r0 + org_ref[0])
+    cols = lax.broadcasted_iota(jnp.int32, (BH, BW), 1) + (c0 + org_ref[1])
+    Rmax = ladder[-1] if ladder is not None else R
+    T = math.tan(math.radians(threshold_deg))
+    zero = jnp.zeros((BH, BW), jnp.float32)
+    half_pi = jnp.float32(np.pi / 2)
+
+    if mode in ("counts", "classes"):
+        accs = (jnp.zeros((BH, BW), jnp.int32),) * 2
+    elif mode == "openness":
+        accs = (zero, zero)
+    elif mode in ("svf", "ternary"):
+        accs = (zero,)
+    else:
+        accs = ()
+
+    for d in range(8):
+        dr, dc = OFFSETS[d]
+        # the XLA engine's f32 denominator, cellsize * w_d * L
+        cw = np.float32(cellsize) * np.float32(STEP_LENGTH[d])
+
+        def step(L, carry, dr=dr, dc=dc, cw=cw):
+            mx, mn = carry
+            src = z_ref[pl.ds(r0 + R + dr * L, BH),
+                        pl.ds(c0 + R + dc * L, BW)]
+            Lf = (jnp.float32(L) if isinstance(L, int)
+                  else L.astype(jnp.float32))
+            ratio = (src - core) / (jnp.float32(cw) * Lf)
+            # compare-select skips NaN (padding or nodata holes)
             mx = jnp.where(ratio > mx, ratio, mx)
             mn = jnp.where(ratio < mn, ratio, mn)
-        return mx, mn
+            return mx, mn
 
-    if ladder is not None:
-        win_d = win[:, :]
-        mx = jnp.full((TH, TW), neg_inf)
-        mn = jnp.full((TH, TW), pos_inf)
-        for L in ladder:
-            mx, mn = accum(win_d, mx, mn, jnp.float32(0.0), int(L))
-    else:
-        CH = 8
-        n_full = R // CH
-        tail = R - n_full * CH
+        carry = (jnp.full((BH, BW), -jnp.inf, jnp.float32),
+                 jnp.full((BH, BW), jnp.inf, jnp.float32))
+        if ladder is not None:
+            for L in ladder:
+                carry = step(L, carry)
+        else:
+            carry = lax.fori_loop(1, R + 1, step, carry)
+        mx, mn = carry
 
-        def roll_ch(win_d):
-            if dr:
-                win_d = pltpu.roll(win_d, (-dr * CH) % win_d.shape[0],
-                                   axis=0)
-            if dc:
-                win_d = pltpu.roll(win_d, (-dc * CH) % win_d.shape[1],
-                                   axis=1)
-            return win_d
-
-        def chunk_step(c, carry):
-            win_d, mx, mn = carry
-            base = c.astype(jnp.float32) * jnp.float32(CH)
-            for l in range(1, CH + 1):
-                mx, mn = accum(win_d, mx, mn, base, l)
-            return roll_ch(win_d), mx, mn
-
-        win_d, mx, mn = lax.fori_loop(
-            0, n_full, chunk_step,
-            (win[:, :], jnp.full((TH, TW), neg_inf),
-             jnp.full((TH, TW), pos_inf)))
-        for l in range(1, tail + 1):
-            mx, mn = accum(win_d, mx, mn, jnp.float32(n_full * CH), l)
-
-    if not nan_safe:
-        # edge-replication correction: out-of-range steps contribute 0
-        # (oob is monotone in L, so testing the largest step covers
-        # every ladder level)
+        # edge replication: an out-of-range step contributes ratio
+        # exactly 0 (out-of-range is monotone in L, so the largest
+        # step decides for the whole ladder)
         sr = rows + dr * Rmax
         sc = cols + dc * Rmax
         oob = (sr < 0) | (sr >= H) | (sc < 0) | (sc >= W)
         mx = jnp.where(oob, jnp.maximum(mx, 0.0), mx)
         mn = jnp.where(oob, jnp.minimum(mn, 0.0), mn)
-    return mx, mn
 
-
-def _dir_is_safe(i, j, d, org_ref, *, TH, TW, R, RR, RC, H, W, ext):
-    """Scalar predicate: do tile (i, j)'s reads FOR DIRECTION ``d``
-    (core plus the d*1..d*R shifted slices) stay on real in-bounds
-    terrain?  Per-direction because an edge tile is only unsafe for
-    the ~3 directions whose rays point off the raster — the other
-    directions still take the maskless fast ladder.  ``ext`` =
-    (row0, rows, col0, cols) is the padded array's real-data extent in
-    padded coordinates (single device: (RR, H, RC, W); shard blocks:
-    the R-haloed local block).  The reads must also be globally in
-    bounds (halo data next to the raster edge is NaN)."""
-    er0, enr, ec0, enc = ext
-    dr, dc = OFFSETS[d]
-    r_lo, r_hi = min(0, dr * R), max(0, dr * R)
-    c_lo, c_hi = min(0, dc * R), max(0, dc * R)
-    wr0 = i * TH + RR + r_lo
-    wr1 = i * TH + RR + r_hi + TH
-    wc0 = j * TW + RC + c_lo
-    wc1 = j * TW + RC + c_hi + TW
-    org0 = org_ref[0]
-    org1 = org_ref[1]
-    # global coords of window row r (padded) = org0 + r - RR
-    return ((wr0 >= er0) & (wr1 <= er0 + enr)
-            & (wc0 >= ec0) & (wc1 <= ec0 + enc)
-            & (org0 + wr0 - RR >= 0) & (org0 + wr1 - RR <= H)
-            & (org1 + wc0 - RC >= 0) & (org1 + wc1 - RC <= W))
-
-
-def _tile_nan_grid(Zp, TH, TW, RR, RC, ext):
-    """(grid_h, grid_w) int32 plane: 1 iff tile (i, j)'s full read
-    window contains an INTERIOR NaN — a nodata hole inside the
-    real-data extent.  The NaN padding frame is excluded (geometry
-    handles it); without this flag the maskless fast ladder would read
-    holes as terrain and misclassify every pixel whose ray crosses one
-    (caught by tests/test_pallas.py::test_nan_hole_in_safe_tile)."""
-    er0, enr, ec0, enc = ext
-    Hq, Wq = Zp.shape
-    rows = lax.broadcasted_iota(jnp.int32, (Hq, Wq), 0)
-    cols = lax.broadcasted_iota(jnp.int32, (Hq, Wq), 1)
-    interior = ((rows >= er0) & (rows < er0 + enr)
-                & (cols >= ec0) & (cols < ec0 + enc))
-    m = (jnp.isnan(Zp) & interior).astype(jnp.int32)
-    # Two-stage: a single (TH+2RR, TW+2RC) reduce_window blows XLA's
-    # scoped-vmem stack on TPU; instead block-max over (TH, TW) blocks
-    # of the whole padded array (a reshape reduction), then max the
-    # blocks each window touches — conservative at block granularity,
-    # which only ever sends extra tiles down the masked path.
-    gh = (Hq - 2 * RR) // TH
-    gw = (Wq - 2 * RC) // TW
-    nbh = -(-Hq // TH)
-    nbw = -(-Wq // TW)
-    mp = jnp.pad(m, ((0, nbh * TH - Hq), (0, nbw * TW - Wq)))
-    coarse = mp.reshape(nbh, TH, nbw, TW).max(axis=(1, 3))
-    # tile (i, j)'s window [i*TH, i*TH + TH + 2*RR) touches blocks
-    # i .. i + ceil(2*RR/TH) (and likewise for columns)
-    nr = 1 + -(-2 * RR // TH)
-    nc = 1 + -(-2 * RC // TW)
-    windows = [coarse[dr:dr + gh, dc:dc + gw]
-               for dr in range(nr) for dc in range(nc)]
-    return jnp.stack(windows).max(axis=0)
-
-
-def _extrema_kernel(org_ref, nan_ref, Z_hbm, mx_ref, mn_ref, win, sem,
-                    *, TH, TW, R, RR, RC, H, W, cellsize, ext,
-                    ladder=None):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    dma = pltpu.make_async_copy(
-        Z_hbm.at[pl.ds(i * TH, TH + 2 * RR), pl.ds(j * TW, TW + 2 * RC)],
-        win, sem)
-    dma.start()
-    dma.wait()
-    core = win[RR:RR + TH, RC:RC + TW]
-    rows = (jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 0) + i * TH
-            + org_ref[0])
-    cols = (jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 1) + j * TW
-            + org_ref[1])
-    no_nan = nan_ref[i, j] == 0
-    Rmax = int(ladder[-1]) if ladder is not None else R
-    dir_safe = [no_nan & _dir_is_safe(i, j, d, org_ref, TH=TH, TW=TW,
-                                      R=Rmax, RR=RR, RC=RC, H=H, W=W,
-                                      ext=ext)
-                for d in range(8)]
-    all_safe = dir_safe[0]
-    for d in range(1, 8):
-        all_safe = all_safe & dir_safe[d]
-
-    def run_ladder(d, nan_safe):
-        return _extrema_ladder(win, core, rows, cols, d, TH=TH, TW=TW,
-                               R=R, RR=RR, RC=RC, H=H, W=W,
-                               cellsize=cellsize, nan_safe=nan_safe,
-                               ladder=ladder)
-
-    # Interior tiles (the bulk of a big raster): one straight-line
-    # maskless body — measured ~15% faster than routing them through
-    # the per-direction conds (scf.if regions defeat cross-direction
-    # scheduling).  Boundary tiles: per-direction cond, so only the
-    # ~3 directions pointing off the raster pay the masked ladder.
-    @pl.when(all_safe)
-    def _():
-        for d in range(8):
-            mx, mn = run_ladder(d, True)
-            mx_ref[d, :, :] = mx
-            mn_ref[d, :, :] = mn
-
-    @pl.when(jnp.logical_not(all_safe))
-    def _():
-        for d in range(8):
-            mx, mn = lax.cond(dir_safe[d], partial(run_ladder, d, True),
-                              partial(run_ladder, d, False))
-            mx_ref[d, :, :] = mx
-            mn_ref[d, :, :] = mn
-
-
-@partial(jax.jit, static_argnames=("lookup_pixels", "tile", "interpret",
-                                   "cellsize", "fast", "how_fast"))
-def directional_extrema_pallas(Z, cellsize=1.0, lookup_pixels=1,
-                               tile=(256, 512), interpret=None,
-                               fast=False, how_fast=20):
-    """Per-direction (8, H, W) running max/min slope ratios from the
-    blocked VMEM ladder — the Pallas fast path behind openness /
-    ternary codes (equivalent to ``visibility.directional_ratio_extrema``
-    without the ``seen`` plane: ``seen == mx > -inf``)."""
-    Z = jnp.asarray(Z, dtype=jnp.float32)
-    H, W = Z.shape
-    R = int(lookup_pixels)
-    TH, TW = tile
-    TH = min(TH, -(-H // 8) * 8)
-    TW = min(TW, -(-W // 128) * 128)
-    RR = -(-R // 8) * 8
-    RC = -(-R // 128) * 128
-    Hp = -(-H // TH) * TH
-    Wp = -(-W // TW) * TW
-    Zp = jnp.pad(Z, ((RR, RR + (Hp - H)), (RC, RC + (Wp - W))),
-                 constant_values=jnp.nan)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    org = jnp.zeros((2,), dtype=jnp.int32)
-    ext = (RR, H, RC, W)
-    nan_grid = _tile_nan_grid(Zp, TH, TW, RR, RC, ext)
-    ladder = _fast_ladder(R, how_fast) if fast else None
-    kernel = partial(_extrema_kernel, TH=TH, TW=TW, R=R, RR=RR, RC=RC,
-                     H=H, W=W, cellsize=float(cellsize), ext=ext,
-                     ladder=ladder)
-    mx, mn = pl.pallas_call(
-        kernel,
-        grid=(Hp // TH, Wp // TW),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=(
-            pl.BlockSpec((8, TH, TW), lambda i, j: (0, i, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, TH, TW), lambda i, j: (0, i, j),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((8, Hp, Wp), jnp.float32),
-            jax.ShapeDtypeStruct((8, Hp, Wp), jnp.float32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((TH + 2 * RR, TW + 2 * RC), jnp.float32),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(org, nan_grid, Zp)
-    return mx[:, :H, :W], mn[:, :H, :W]
-
-
-def _counts_kernel(org_ref, nan_ref, Z_hbm, np_ref, nn_ref, win, sem,
-                   *, TH, TW, R, RR, RC, H, W, cellsize, threshold_deg,
-                   ext, ladder=None, static_unsafe=None, grid_off=(0, 0)):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    # grid_off: PIXEL offset of this program's region within the padded
-    # array ((0, 0) for the dynamic single-program path; a thin-strip
-    # region's origin under the static specialization, where regions
-    # carry their own tile shape so tile-unit offsets cannot address
-    # them).  nan_ref is region-local either way.
-    r0 = i * TH + grid_off[0]
-    c0 = j * TW + grid_off[1]
-
-    # window DMA: slice extents/offsets are aligned to the (8, 128)
-    # VMEM tiling by construction (RR = R rounded to 8, RC to 128,
-    # region offsets/extents 8- and 128-aligned)
-    dma = pltpu.make_async_copy(
-        Z_hbm.at[pl.ds(r0, TH + 2 * RR), pl.ds(c0, TW + 2 * RC)],
-        win, sem)
-    dma.start()
-    dma.wait()
-
-    core = win[RR:RR + TH, RC:RC + TW]
-    neg_inf = jnp.float32(-jnp.inf)
-
-    # org_ref (SMEM): global (row, col) of this array's core origin —
-    # (0, 0) single-device; the device block's offset under shard_map.
-    # (H, W) is always the GLOBAL raster shape for the oob tests.
-    rows = (jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 0) + r0
-            + org_ref[0])
-    cols = (jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 1) + c0
-            + org_ref[1])
-    no_nan = nan_ref[i, j] == 0
-
-    # Direction is the OUTER loop so only one window copy and two
-    # (TH, TW) accumulators are live at a time; the chunked ladder
-    # lives in _extrema_ladder (see its comments for the Mosaic
-    # constraints that shaped it).
-    T = jnp.float32(math.tan(math.radians(threshold_deg)))
-    one = jnp.float32(1.0)
-    zero = jnp.float32(0.0)
-
-    def run_ladder(d, nan_safe):
-        return _extrema_ladder(win, core, rows, cols, d, TH=TH, TW=TW,
-                               R=R, RR=RR, RC=RC, H=H, W=W,
-                               cellsize=cellsize, nan_safe=nan_safe,
-                               ladder=ladder)
-
-    def classify(mx, mn, num_pos, num_neg):
-        # The openness difference is diff = atan(a) - atan(b) with
-        # a = -mn, b = mx.  Pallas TPU has no atan primitive;
-        # compare in tangent space instead — exactly, via
-        #   diff > t  <=>  (1+ab > 0) ? (a-b) > tan(t)*(1+ab) : a > b
-        # (valid for 0 < t < pi/2; |diff| > pi/2 iff 1+ab <= 0).  The
-        # cross-multiplied form avoids the VPU divide; denom > 0 and
-        # T > 0 keep both inequalities orientation-stable.
-        a = -mn
-        b = mx
-        denom = 1.0 + a * b
-        s = a - b
-        td = T * denom
-        wide = denom <= 0.0
-        narrow = denom > 0.0
-        # select-of-booleans is unsupported by Mosaic ("unsupported
-        # target bitwidth for truncation"); use i1 logic instead
-        gt = (wide & (a > b)) | (narrow & (s > td))
-        lt = (wide & (a < b)) | (narrow & (s < -td))
-        # unseen -> a,b infinite -> NaN u -> both False already, but
-        # keep the mask explicit (2 ANDs per direction, not per step)
-        seen = mx > neg_inf
-        gt = gt & seen
-        lt = lt & seen
-        num_pos = num_pos + jnp.where(gt, one, zero)
-        num_neg = num_neg + jnp.where(lt, one, zero)
-        return num_pos, num_neg
-
-    def straight_body(unsafe8):
-        """One straight-line pass with a per-direction COMPILE-TIME
-        masked/maskless choice (no scf.if regions at all)."""
-        num_pos = jnp.zeros((TH, TW), dtype=jnp.float32)
-        num_neg = jnp.zeros((TH, TW), dtype=jnp.float32)
-        for d in range(8):
-            mx, mn = run_ladder(d, not unsafe8[d])
-            num_pos, num_neg = classify(mx, mn, num_pos, num_neg)
-        np_ref[:, :] = num_pos
-        nn_ref[:, :] = num_neg
-
-    if static_unsafe is not None:
-        # 9-patch static specialization: this program serves ONE
-        # boundary region whose unsafe-direction set is known at
-        # compile time, so the body is straight-line for every tile.
-        # The masked ladder's compare-select skips NaN ratios, so a
-        # region that is all-masked anyway needs no NaN branch.
-        if all(static_unsafe):
-            straight_body(static_unsafe)
-        else:
-            @pl.when(no_nan)
-            def _():
-                straight_body(static_unsafe)
-
-            @pl.when(jnp.logical_not(no_nan))
-            def _():
-                straight_body((True,) * 8)
-        return
-
-    Rmax = int(ladder[-1]) if ladder is not None else R
-    dir_safe = [no_nan & _dir_is_safe(i, j, d, org_ref, TH=TH, TW=TW,
-                                      R=Rmax, RR=RR, RC=RC, H=H, W=W,
-                                      ext=ext)
-                for d in range(8)]
-    all_safe = dir_safe[0]
-    for d in range(1, 8):
-        all_safe = all_safe & dir_safe[d]
-
-    # Interior tiles: one straight-line maskless body (no scf.if
-    # regions between directions — measurably faster); boundary
-    # tiles: per-direction cond, so only the ~3 directions pointing
-    # off the raster pay the masked ladder.
-    @pl.when(all_safe)
-    def _():
-        straight_body((False,) * 8)
-
-    @pl.when(jnp.logical_not(all_safe))
-    def _():
-        num_pos = jnp.zeros((TH, TW), dtype=jnp.float32)
-        num_neg = jnp.zeros((TH, TW), dtype=jnp.float32)
-        for d in range(8):
-            mx, mn = lax.cond(dir_safe[d], partial(run_ladder, d, True),
-                              partial(run_ladder, d, False))
-            num_pos, num_neg = classify(mx, mn, num_pos, num_neg)
-        np_ref[:, :] = num_pos
-        nn_ref[:, :] = num_neg
-
-
-@partial(jax.jit, static_argnames=("lookup_pixels", "tile", "interpret",
-                                   "cellsize", "threshold_angle",
-                                   "fast", "how_fast", "specialize"))
-def openness_counts_pallas(Z, cellsize=1.0, lookup_pixels=1,
-                           threshold_angle=1.0, tile=(256, 1024),
-                           interpret=None, fast=False, how_fast=20,
-                           specialize=None):
-    """(num_pos, num_neg) direction counts for geomorphons, computed by
-    the blocked Pallas scan.  Equivalent to
-    ``ops.visibility.count_openness`` (asserted in tests).
-
-    ``specialize``: the 9-patch static variant (one Mosaic program per
-    boundary region, unsafe-direction sets folded at compile time —
-    see ``_region_calls``): bit-identical outputs (asserted on
-    hardware), measured +6-20% depending on boundary-tile fraction.
-    Default ``None`` resolves to True on the compiled (non-interpret)
-    path for the EXACT ladder — where the 9 cond-free programs compile
-    in ~the same total server time as the one dynamic program — and to
-    False for the ``fast`` unrolled ladder, whose specialized compile
-    measured ~2x (754 s vs 383 s; opt in explicitly, the persistent
-    executable cache makes it a one-time cost: 870 vs 728 Mpix/s at
-    2048x4096)."""
-    Z = jnp.asarray(Z, dtype=jnp.float32)
-    H, W = Z.shape
-    R = int(lookup_pixels)
-    TH, TW = tile
-    # clamp tiles to the (aligned) input so small rasters aren't padded
-    # to a full tile (matters for interpret-mode tests especially)
-    TH = min(TH, -(-H // 8) * 8)
-    TW = min(TW, -(-W // 128) * 128)
-    RR = -(-R // 8) * 8        # sublane-aligned row halo
-    RC = -(-R // 128) * 128    # lane-aligned column halo
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    specialize = _resolve_specialize(specialize, interpret, fast)
-    if specialize:
-        # region tiles carry their own shapes — pad to the (8, 128)
-        # VMEM alignment only (less padded work than tile multiples)
-        Hp = -(-H // 8) * 8
-        Wp = -(-W // 128) * 128
-    else:
-        Hp = -(-H // TH) * TH
-        Wp = -(-W // TW) * TW
-    # pad: aligned halo on every side + tile alignment; NaN so halo
-    # reads never fake terrain (masks make them ratio-0 out of range)
-    Zp = jnp.pad(Z, ((RR, RR + (Hp - H)), (RC, RC + (Wp - W))),
-                 constant_values=jnp.nan)
-
-    org = jnp.zeros((2,), dtype=jnp.int32)
-    ladder = _fast_ladder(R, how_fast) if fast else None
-    if specialize:
-        num_pos, num_neg = _counts_call_9patch(
-            Zp, org, TH, TW, R, RR, RC, H, W, float(cellsize),
-            float(threshold_angle), interpret, ladder=ladder)
-    else:
-        num_pos, num_neg = _counts_call(Zp, org, TH, TW, R, RR, RC, H,
-                                        W, float(cellsize),
-                                        float(threshold_angle),
-                                        interpret, ext=(RR, H, RC, W),
-                                        ladder=ladder)
-    return (num_pos[:H, :W].astype(jnp.uint8),
-            num_neg[:H, :W].astype(jnp.uint8))
-
-
-def _counts_call(Zp, org, TH, TW, R, RR, RC, H, W, cellsize,
-                 threshold_deg, interpret, vma=None, ext=None,
-                 ladder=None):
-    """Shared pallas_call wrapper.  ``Zp`` carries an (RR, RC) aligned
-    NaN halo around its core and tile-aligned bottom/right padding;
-    ``org`` is the core's global (row, col) origin as a traced (2,)
-    int32 (SMEM scalar input).  ``vma`` names the shard_map mesh axes
-    the outputs vary over when called per-shard.  ``ext`` is the
-    real-data extent of ``Zp`` in padded coordinates (see
-    ``_tile_is_safe``)."""
-    Hp = Zp.shape[0] - 2 * RR
-    Wp = Zp.shape[1] - 2 * RC
-    grid = (Hp // TH, Wp // TW)
-    if ext is None:
-        ext = (RR, H, RC, W)
-    nan_grid = _tile_nan_grid(Zp, TH, TW, RR, RC, ext)
-    kernel = partial(_counts_kernel, TH=TH, TW=TW, R=R, RR=RR, RC=RC,
-                     H=H, W=W, cellsize=cellsize,
-                     threshold_deg=threshold_deg, ext=ext, ladder=ladder)
-    if vma is None:
-        out_struct = lambda: jax.ShapeDtypeStruct((Hp, Wp), jnp.float32)
-    else:
-        out_struct = lambda: jax.ShapeDtypeStruct(
-            (Hp, Wp), jnp.float32, vma=frozenset(vma))
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=(
-            pl.BlockSpec((TH, TW), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((TH, TW), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(out_struct(), out_struct()),
-        scratch_shapes=[
-            pltpu.VMEM((TH + 2 * RR, TW + 2 * RC), jnp.float32),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        # The ladder's misaligned-slice temporaries exceed the default
-        # 16 MB scoped-vmem budget at R=50; v5e has 128 MB of VMEM, so
-        # raise the ceiling instead of shrinking the tile.
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(org, nan_grid, Zp)
-
-
-def _axis_segments(P, T, Rmax, N, align):
-    """Partition one padded axis [0, P) into THIN boundary strips plus
-    interior tiles, for the static boundary specialization.  Returns
-    ``[(px_off, n_tiles, tile_px, (lo, mid, hi)), ...]`` — every offset
-    and extent a multiple of ``align`` (the (8, 128) VMEM tiling), with
-    flags as in ``_dir_is_safe``:
-
-    * lo:  reads toward negative leave the data;
-    * mid: the tile core overhangs the real extent ``N`` (alignment
-      padding rows/cols), which unsafes EVERY direction;
-    * hi:  reads toward positive leave the data.
-
-    The r4.1 point: the masked ladder only NEEDS to run within ``Rmax``
-    of the raster edge, but the original 9-patch regions were cut at
-    full interior-tile granularity, so a 2048x4096/R=50 raster paid the
-    masked premium on 20 of 32 full (256, 1024) tiles (~63% of area)
-    when only ~4% is actually near an edge.  Boundary strips here are
-    ``Rmax`` rounded up to alignment (56 rows / 128 cols at R=50) —
-    the masked area drops to the true sliver, recovering most of the
-    gap to the maskless floor (the module-header roofline).  The
-    interior splits into k full ``T`` tiles plus one aligned remainder
-    tile, so an axis yields at most 4 segments (16 programs for 2-D;
-    measured r4: cond-free region programs compile ~O(count) but each
-    far cheaper than the one cond-heavy dynamic program).
-
-    Degenerate axes (real extent too small for a safe interior)
-    collapse to a single all-masked segment, exactly like the old
-    whole-tile runs did."""
-    strip = -(-Rmax // align) * align
-    BB = (N - Rmax) // align * align  # last aligned hi-safe region end
-    if BB < strip or strip >= P:
-        return [(0, 1, P, (True, P > N, True))]
-    segs = [(0, 1, strip, (True, False, False))]
-    M = BB - strip
-    k = M // T
-    rem = M - k * T
-    if k > 0:
-        segs.append((strip, k, T, (False, False, False)))
-    if rem > 0:
-        segs.append((strip + k * T, 1, rem, (False, False, False)))
-    segs.append((BB, 1, P - BB, (False, P > N, True)))
-    return segs
-
-
-def _axis_bad(dd, flags):
-    """Is a direction with per-axis step ``dd`` unsafe for a tile with
-    ``_axis_runs`` flags?  (Same algebra as ``_dir_is_safe``, evaluated
-    at Python time.)"""
-    lo, mid, hi = flags
-    if dd < 0:
-        return lo or mid
-    if dd > 0:
-        return hi
-    return mid
-
-
-def _coarse_nan(Zp, ext):
-    """(Hq/8, Wq/128) int32 block-max of the interior-NaN mask — the
-    shared precursor for every region's NaN-flag grid (the padded
-    array's dimensions are (8, 128)-aligned by construction)."""
-    er0, enr, ec0, enc = ext
-    Hq, Wq = Zp.shape
-    rows = lax.broadcasted_iota(jnp.int32, (Hq, Wq), 0)
-    cols = lax.broadcasted_iota(jnp.int32, (Hq, Wq), 1)
-    interior = ((rows >= er0) & (rows < er0 + enr)
-                & (cols >= ec0) & (cols < ec0 + enc))
-    m = (jnp.isnan(Zp) & interior).astype(jnp.int32)
-    return m.reshape(Hq // 8, 8, Wq // 128, 128).max(axis=(1, 3))
-
-
-def _region_nan(coarse, off_r, off_c, rn, cn, TH, TW, RR, RC):
-    """(rn, cn) int32 flags: 1 iff region tile (i, j)'s full read
-    window (core + aligned halo) contains an interior NaN.  Exact at
-    (8, 128) block granularity — every window edge is aligned, so no
-    conservatism beyond the blocks themselves (which only ever routes
-    extra tiles down the masked path)."""
-    win = ((TH + 2 * RR) // 8, (TW + 2 * RC) // 128)
-    stride = (TH // 8, TW // 128)
-    sl = coarse[off_r // 8:, off_c // 128:]
-    f = lax.reduce_window(sl, jnp.int32(0), lax.max,
-                          window_dimensions=win, window_strides=stride,
-                          padding="valid")
-    return f[:rn, :cn]
-
-
-def _region_calls(Zp, org, TH, TW, R, RR, RC, H, W, interpret, ladder,
-                  make_kernel, n_out):
-    """Static-specialization driver, shared by the counts and
-    fused-reduction kernels (single-device entries only — ``org`` must
-    be the concrete (0, 0) origin): partition the padded array into
-    boundary-strip regions (``_axis_segments``), build ONE pallas_call
-    per region via ``make_kernel(static_unsafe, px_off, th, tw)`` with
-    the region's unsafe-direction set folded at COMPILE time and the
-    region's own tile shape, and stitch the region outputs.  Every tile
-    body is straight-line (no scf.if regions at all — the ~2 ms/8.4
-    Mpix scheduling tax the per-direction ``lax.cond`` structure pays;
-    see the module header's roofline decomposition), and the masked
-    bodies only cover the thin (~Rmax-wide) strips that geometrically
-    need them.  Costs up to 16 Mosaic programs of server-side compile
-    per (shape, R, tile) configuration — measured r4: the cond-free
-    region programs together compile in the same ballpark as the one
-    cond-heavy dynamic program, and the ``neilpy_tpu.aot`` persistent
-    executable cache makes it a per-machine one-time cost.  Outputs are
-    bit-identical to the dynamic kernel: the per-region sets are
-    conservative supersets of ``_dir_is_safe``'s predicate (thin-strip
-    granularity), and masked vs maskless ladders agree wherever both
-    are valid."""
-    Hp = Zp.shape[0] - 2 * RR
-    Wp = Zp.shape[1] - 2 * RC
-    ext = (RR, H, RC, W)
-    coarse = _coarse_nan(Zp, ext)
-    Rmax = int(ladder[-1]) if ladder is not None else R
-    rsegs = _axis_segments(Hp, TH, Rmax, H, 8)
-    csegs = _axis_segments(Wp, TW, Rmax, W, 128)
-    rows_out = [[] for _ in range(n_out)]
-    for (roff, rn, th, rflags) in rsegs:
-        cols_out = [[] for _ in range(n_out)]
-        for (coff, cn, tw, cflags) in csegs:
-            unsafe = tuple(
-                bool(_axis_bad(OFFSETS[d][0], rflags)
-                     or _axis_bad(OFFSETS[d][1], cflags))
-                for d in range(8))
-            nan_grid = _region_nan(coarse, roff, coff, rn, cn, th, tw,
-                                   RR, RC)
-            kernel = make_kernel(unsafe, (roff, coff), th, tw)
-            outs = pl.pallas_call(
-                kernel,
-                grid=(rn, cn),
-                in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                          pl.BlockSpec(memory_space=pltpu.SMEM),
-                          pl.BlockSpec(memory_space=pl.ANY)],
-                out_specs=tuple(
-                    pl.BlockSpec((th, tw), lambda i, j: (i, j),
-                                 memory_space=pltpu.VMEM)
-                    for _ in range(n_out)),
-                out_shape=tuple(
-                    jax.ShapeDtypeStruct((rn * th, cn * tw), jnp.float32)
-                    for _ in range(n_out)),
-                scratch_shapes=[
-                    pltpu.VMEM((th + 2 * RR, tw + 2 * RC), jnp.float32),
-                    pltpu.SemaphoreType.DMA(()),
-                ],
-                compiler_params=pltpu.CompilerParams(
-                    vmem_limit_bytes=100 * 1024 * 1024),
-                interpret=interpret,
-            )(org, nan_grid, Zp)
-            for k in range(n_out):
-                cols_out[k].append(outs[k])
-        for k in range(n_out):
-            rows_out[k].append(
-                cols_out[k][0] if len(cols_out[k]) == 1
-                else jnp.concatenate(cols_out[k], axis=1))
-    return tuple(r[0] if len(r) == 1 else jnp.concatenate(r, axis=0)
-                 for r in rows_out)
-
-
-def _counts_call_9patch(Zp, org, TH, TW, R, RR, RC, H, W, cellsize,
-                        threshold_deg, interpret, ladder=None):
-    """Static 9-patch variant of ``_counts_call`` (see
-    ``_region_calls``)."""
-    ext = (RR, H, RC, W)
-
-    def make_kernel(unsafe, off_px, th, tw):
-        return partial(_counts_kernel, TH=th, TW=tw, R=R, RR=RR, RC=RC,
-                       H=H, W=W, cellsize=cellsize,
-                       threshold_deg=threshold_deg, ext=ext,
-                       ladder=ladder, static_unsafe=unsafe,
-                       grid_off=off_px)
-
-    return _region_calls(Zp, org, TH, TW, R, RR, RC, H, W, interpret,
-                         ladder, make_kernel, 2)
-
-
-def _atan_f32(x):
-    """Vectorized f32 arctan for Mosaic (which has no atan primitive —
-    probed on hardware: 'Unimplemented primitive ... atan').  Cephes
-    atanf structure: two-stage range reduction onto [0, tan(pi/8)] and
-    a degree-9 odd minimax polynomial; measured max error vs f64 atan
-    is ~1.2e-7 rad (about 1 ulp of pi/2), so openness in degrees is
-    within ~7e-6 of the XLA-epilogue path.  Branches are flat selects
-    (VPU-friendly); ±inf reduces to exactly ±pi/2; NaN propagates."""
-    sign = jnp.where(x < 0, jnp.float32(-1.0), jnp.float32(1.0))
-    t = jnp.abs(x)
-    # tan(3*pi/8), tan(pi/8)
-    T3P8 = jnp.float32(2.414213562373095)
-    TP8 = jnp.float32(0.4142135623730950)
-    big = t > T3P8
-    mid = (t > TP8) & ~big
-    # reduced argument (guard the 1/t and (t-1)/(t+1) divides; the
-    # where() selects the valid lane afterwards)
-    safe_t = jnp.where(big, t, jnp.float32(1.0))
-    r_big = -1.0 / safe_t
-    r_mid = (t - 1.0) / (t + 1.0)
-    r = jnp.where(big, r_big, jnp.where(mid, r_mid, t))
-    base = jnp.where(big, jnp.float32(np.pi / 2),
-                     jnp.where(mid, jnp.float32(np.pi / 4),
-                               jnp.float32(0.0)))
-    z = r * r
-    p = jnp.float32(8.05374449538e-2)
-    p = p * z - jnp.float32(1.38776856032e-1)
-    p = p * z + jnp.float32(1.99777106478e-1)
-    p = p * z - jnp.float32(3.33329491539e-1)
-    y = base + (p * z * r + r)
-    # t = +inf: r_big = -0, y = pi/2 exactly; NaN falls through
-    return sign * y
-
-
-def _reduced_kernel(org_ref, nan_ref, Z_hbm, *refs, TH, TW, R, RR, RC,
-                    H, W, cellsize, ext, mode, threshold_deg=0.0,
-                    neg_mode=True, ladder=None, static_unsafe=None,
-                    grid_off=(0, 0)):
-    """The directional ladder with an IN-KERNEL reduction over the 8
-    directions: instead of materializing two (8, H, W) f32 extrema
-    planes to HBM (16 full-plane writes — measured 281 vs 444 Mpix/s
-    for openness vs the counts kernel, VERDICT r3 #4), each direction's
-    (mx, mn) live only as VMEM registers and fold straight into the
-    reduced product:
-
-    * mode='openness': positive AND negative Yokoyama openness sums
-      (radians; two output planes) — ``sum_d (pi/2 - atan(mx_d))`` and
-      ``sum_d (pi/2 - atan(-mn_d))``, +inf where a direction never saw
-      terrain (matches ``_angles_from_extrema``);
-    * mode='svf': ``sum_d t/sqrt(1+t^2)`` with ``t = max(mx_d, 0)``
-      (one plane; sin(atan(t)) algebraically — no transcendental);
-    * mode='ternary': base-3 packed digits (one f32 plane of integers
-      <= 6560): digit_d = 1 + (O_d > t) - (O_d < -t) evaluated exactly
-      in tangent space like the counts kernel; ``neg_mode`` selects
-      O = pos - neg (use_negative_openness) vs O = pos - 90.
-    """
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    # grid_off: PIXEL region offset (see _counts_kernel)
-    r0 = i * TH + grid_off[0]
-    c0 = j * TW + grid_off[1]
-    win, sem = refs[-2], refs[-1]
-    out_refs = refs[:-2]
-    dma = pltpu.make_async_copy(
-        Z_hbm.at[pl.ds(r0, TH + 2 * RR), pl.ds(c0, TW + 2 * RC)],
-        win, sem)
-    dma.start()
-    dma.wait()
-    core = win[RR:RR + TH, RC:RC + TW]
-    neg_inf = jnp.float32(-jnp.inf)
-    pos_inf = jnp.float32(jnp.inf)
-    half_pi = jnp.float32(np.pi / 2)
-
-    rows = (jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 0) + r0
-            + org_ref[0])
-    cols = (jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 1) + c0
-            + org_ref[1])
-    no_nan = nan_ref[i, j] == 0
-
-    def run_ladder(d, nan_safe):
-        return _extrema_ladder(win, core, rows, cols, d, TH=TH, TW=TW,
-                               R=R, RR=RR, RC=RC, H=H, W=W,
-                               cellsize=cellsize, nan_safe=nan_safe,
-                               ladder=ladder)
-
-    T = jnp.float32(math.tan(math.radians(threshold_deg)))
-    one = jnp.float32(1.0)
-    zero = jnp.float32(0.0)
-
-    def reduce_dir(d, mx, mn, accs):
-        seen = mx > neg_inf
-        if mode == "openness":
-            pos = half_pi - _atan_f32(mx)
-            neg = half_pi - _atan_f32(-mn)
-            pos = jnp.where(seen, pos, pos_inf)
-            neg = jnp.where(seen, neg, pos_inf)
-            return (accs[0] + pos, accs[1] + neg)
-        if mode == "svf":
+        if mode == "extrema":
+            out_refs[0][d, :, :] = mx
+            out_refs[1][d, :, :] = mn
+        elif mode in ("counts", "classes"):
+            gt, lt = _tangent_compare(mx, mn, T)
+            accs = (accs[0] + gt.astype(jnp.int32),
+                    accs[1] + lt.astype(jnp.int32))
+        elif mode == "openness":
+            seen = mx > -jnp.inf
+            pos = jnp.where(seen, half_pi - jnp.arctan(mx), jnp.inf)
+            neg = jnp.where(seen, half_pi - jnp.arctan(-mn), jnp.inf)
+            accs = (accs[0] + pos, accs[1] + neg)
+        elif mode == "svf":
             t = jnp.maximum(mx, 0.0)  # also absorbs unseen (-inf)
-            return (accs[0] + t / jnp.sqrt(1.0 + t * t),)
-        # ternary: tangent-space digit (same exact cross-multiplied
-        # compare as the counts kernel's classify)
-        if neg_mode:
-            a = -mn
-            b = mx
-            denom = 1.0 + a * b
-            s = a - b
-            td = T * denom
-            wide = denom <= 0.0
-            narrow = denom > 0.0
-            gt = (wide & (a > b)) | (narrow & (s > td))
-            lt = (wide & (a < b)) | (narrow & (s < -td))
-            gt = gt & seen
-            lt = lt & seen
-        else:
-            # O = pos - 90 = -atan(mx) deg: O > t <=> mx < -tan(t);
-            # unseen -> pos = +inf -> digit 2 (matches the XLA path)
-            gt = (mx < -T) | jnp.logical_not(seen)
-            lt = seen & (mx > T)
-        digit = one + jnp.where(gt, one, zero) - jnp.where(lt, one, zero)
-        return (accs[0] + digit * jnp.float32(3 ** d),)
-
-    n_acc = 2 if mode == "openness" else 1
-
-    def full_pass(flags):
-        """flags[d]: a PYTHON bool routes direction d's masked (False)
-        vs maskless (True) ladder at compile time; a traced bool routes
-        at runtime via lax.cond."""
-        accs = tuple(jnp.zeros((TH, TW), dtype=jnp.float32)
-                     for _ in range(n_acc))
-        for d in range(8):
-            f = flags[d]
-            if isinstance(f, bool):
-                mx, mn = run_ladder(d, f)
+            accs = (accs[0] + t / jnp.sqrt(1.0 + t * t),)
+        else:  # ternary digit {0: lower, 1: equal, 2: higher} * 3**d
+            if neg_mode:
+                gt, lt = _tangent_compare(mx, mn, T)
             else:
-                mx, mn = lax.cond(f, partial(run_ladder, d, True),
-                                  partial(run_ladder, d, False))
-            accs = reduce_dir(d, mx, mn, accs)
-        for ref, acc in zip(out_refs, accs):
-            ref[:, :] = acc
+                # O = pos - 90 = -atan(mx) deg: O > t <=> mx < -tan(t);
+                # unseen -> pos = +inf -> digit 2 (as in the XLA path)
+                seen = mx > -jnp.inf
+                gt = (mx < -T) | jnp.logical_not(seen)
+                lt = seen & (mx > T)
+            digit = (1.0 + gt.astype(jnp.float32)
+                     - lt.astype(jnp.float32))
+            accs = (accs[0] + digit * float(3 ** d),)
 
-    if static_unsafe is not None:
-        # 9-patch static specialization (see _region_calls): the
-        # masked ladder handles NaN holes too, so an all-masked region
-        # needs no NaN branch.
-        safe8 = tuple(not u for u in static_unsafe)
-        if not any(safe8):
-            full_pass((False,) * 8)
-        else:
-            @pl.when(no_nan)
-            def _():
-                full_pass(safe8)
-
-            @pl.when(jnp.logical_not(no_nan))
-            def _():
-                full_pass((False,) * 8)
-        return
-
-    Rmax = int(ladder[-1]) if ladder is not None else R
-    dir_safe = [no_nan & _dir_is_safe(i, j, d, org_ref, TH=TH, TW=TW,
-                                      R=Rmax, RR=RR, RC=RC, H=H, W=W,
-                                      ext=ext)
-                for d in range(8)]
-    all_safe = dir_safe[0]
-    for d in range(1, 8):
-        all_safe = all_safe & dir_safe[d]
-
-    @pl.when(all_safe)
-    def _():
-        full_pass((True,) * 8)
-
-    @pl.when(jnp.logical_not(all_safe))
-    def _():
-        full_pass(dir_safe)
-
-
-def _reduced_call(Z, cellsize, lookup_pixels, tile, interpret, mode,
-                  threshold_deg=0.0, neg_mode=True, fast=False,
-                  how_fast=20, specialize=None):
-    """Shared wrapper for the fused-reduction kernels: pad/align like
-    ``openness_counts_pallas``, run ``_reduced_kernel``, crop.
-    ``specialize`` selects the 9-patch static boundary specialization
-    (``_region_calls``); ``None`` resolves like
-    ``openness_counts_pallas`` (True on the compiled exact-ladder
-    path, False for ``fast`` / interpret)."""
-    Z = jnp.asarray(Z, dtype=jnp.float32)
-    H, W = Z.shape
-    R = int(lookup_pixels)
-    TH, TW = tile
-    TH = min(TH, -(-H // 8) * 8)
-    TW = min(TW, -(-W // 128) * 128)
-    RR = -(-R // 8) * 8
-    RC = -(-R // 128) * 128
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    specialize = _resolve_specialize(specialize, interpret, fast)
-    if specialize:
-        Hp = -(-H // 8) * 8
-        Wp = -(-W // 128) * 128
+    if mode == "classes":
+        out_refs[0][...] = classes_from_counts(*accs)
+    elif mode == "counts":
+        out_refs[0][...] = accs[0].astype(jnp.uint8)
+        out_refs[1][...] = accs[1].astype(jnp.uint8)
     else:
-        Hp = -(-H // TH) * TH
-        Wp = -(-W // TW) * TW
-    Zp = jnp.pad(Z, ((RR, RR + (Hp - H)), (RC, RC + (Wp - W))),
-                 constant_values=jnp.nan)
-    org = jnp.zeros((2,), dtype=jnp.int32)
-    ext = (RR, H, RC, W)
-    ladder = _fast_ladder(R, how_fast) if fast else None
-    n_out = 2 if mode == "openness" else 1
-    if specialize:
-        def make_kernel(unsafe, off_px, th, tw):
-            return partial(_reduced_kernel, TH=th, TW=tw, R=R, RR=RR,
-                           RC=RC, H=H, W=W, cellsize=float(cellsize),
-                           ext=ext, mode=mode,
-                           threshold_deg=float(threshold_deg),
-                           neg_mode=bool(neg_mode), ladder=ladder,
-                           static_unsafe=unsafe, grid_off=off_px)
+        for ref, acc in zip(out_refs, accs):
+            ref[...] = acc
 
-        outs = _region_calls(Zp, org, TH, TW, R, RR, RC, H, W,
-                             interpret, ladder, make_kernel, n_out)
-        return tuple(o[:H, :W] for o in outs)
-    nan_grid = _tile_nan_grid(Zp, TH, TW, RR, RC, ext)
-    kernel = partial(_reduced_kernel, TH=TH, TW=TW, R=R, RR=RR, RC=RC,
-                     H=H, W=W, cellsize=float(cellsize), ext=ext,
-                     mode=mode, threshold_deg=float(threshold_deg),
+
+def _ladder_call(Zp, org, *, core_shape, global_shape, R, block, mode,
+                 cellsize, threshold_deg=0.0, neg_mode=True, ladder=None,
+                 interpret=None, vma=None):
+    """Run ``_ladder_kernel`` over a raster whose core ``core_shape``
+    sits inside an R-wide frame of ``Zp`` (NaN or real halo data);
+    pads bottom/right to whole blocks and crops the outputs back."""
+    interpret = resolve_interpret(interpret)
+    h, w = core_shape
+    BH, BW = _block_for(core_shape, block)
+    Hp = -(-h // BH) * BH
+    Wp = -(-w // BW) * BW
+    Zp = jnp.pad(jnp.asarray(Zp, jnp.float32),
+                 ((0, Hp - h), (0, Wp - w)), constant_values=jnp.nan)
+    kernel = partial(_ladder_kernel, BH=BH, BW=BW, R=R,
+                     H=int(global_shape[0]), W=int(global_shape[1]),
+                     cellsize=float(cellsize), mode=mode,
+                     threshold_deg=float(threshold_deg),
                      neg_mode=bool(neg_mode), ladder=ladder)
+    out_shape, out_specs = [], []
+    for dtype, lead in _MODE_OUTPUTS[mode]:
+        shape = (Hp, Wp) if lead is None else (lead, Hp, Wp)
+        kw = {} if vma is None else {"vma": frozenset(vma)}
+        out_shape.append(jax.ShapeDtypeStruct(shape, dtype, **kw))
+        out_specs.append(
+            pl.BlockSpec((BH, BW), lambda i, j: (i, j)) if lead is None
+            else pl.BlockSpec((lead, BH, BW), lambda i, j: (0, i, j)))
     outs = pl.pallas_call(
         kernel,
-        grid=(Hp // TH, Wp // TW),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.SMEM),
+        grid=(Hp // BH, Wp // BW),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY),
                   pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=tuple(
-            pl.BlockSpec((TH, TW), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM)
-            for _ in range(n_out)),
-        out_shape=tuple(jax.ShapeDtypeStruct((Hp, Wp), jnp.float32)
-                        for _ in range(n_out)),
-        scratch_shapes=[
-            pltpu.VMEM((TH + 2 * RR, TW + 2 * RC), jnp.float32),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
+        out_specs=tuple(out_specs),
+        out_shape=tuple(out_shape),
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(org, nan_grid, Zp)
-    return tuple(o[:H, :W] for o in outs)
+        name=f"ladder_{mode}",
+    )(jnp.asarray(org, jnp.int32), Zp)
+    return tuple(o[..., :h, :w] for o in outs)
 
 
-@partial(jax.jit, static_argnames=("lookup_pixels", "tile", "interpret",
-                                   "cellsize", "fast", "how_fast",
-                                   "specialize"))
-def openness_pallas(Z, cellsize=1.0, lookup_pixels=1, tile=(256, 1024),
-                    interpret=None, fast=False, how_fast=20,
-                    specialize=None):
-    """(positive, negative) Yokoyama openness in DEGREES from ONE
-    fused ladder pass (reference openness neilpy.py:1325-1356 — the #1
-    flagged kernel in SURVEY §3.2): the 8-direction extrema reduce to
-    the two mean-angle planes inside the kernel, so HBM sees 2 plane
-    writes instead of 16.  Negative openness comes free (the same
-    ladder's mn plane), replacing the two-pass ``openness(Z)`` +
-    ``openness(-Z)`` pattern.  atan runs in-kernel (``_atan_f32``) —
-    within ~7e-6 deg of the XLA epilogue, not bit-identical."""
-    pos_sum, neg_sum = _reduced_call(
-        Z, cellsize, lookup_pixels, tile, interpret, "openness",
-        fast=fast, how_fast=how_fast, specialize=specialize)
+def _single(Z, lookup_pixels, block, mode, cellsize, fast=False,
+            how_fast=20, interpret=None, **kw):
+    """Single-device entry: NaN frame of width R around the raster."""
+    Z = jnp.asarray(Z, dtype=jnp.float32)
+    R = int(lookup_pixels)
+    Zp = jnp.pad(Z, R, constant_values=jnp.nan)
+    ladder = _fast_ladder(R, how_fast) if fast else None
+    return _ladder_call(Zp, jnp.zeros((2,), jnp.int32),
+                        core_shape=Z.shape, global_shape=Z.shape, R=R,
+                        block=block, mode=mode, cellsize=cellsize,
+                        ladder=ladder, interpret=interpret, **kw)
+
+
+_STATIC = ("lookup_pixels", "block", "interpret", "cellsize", "fast",
+           "how_fast")
+
+
+@partial(jax.jit, static_argnames=_STATIC)
+def directional_extrema_pallas(Z, cellsize=1.0, lookup_pixels=1,
+                               block=DEFAULT_BLOCK, interpret=None,
+                               fast=False, how_fast=20):
+    """Per-direction (8, H, W) running max/min slope ratios — the
+    kernel form of ``visibility.directional_ratio_extrema`` without the
+    ``seen`` plane (``seen == mx > -inf``)."""
+    return _single(Z, lookup_pixels, block, "extrema", cellsize, fast,
+                   how_fast, interpret)
+
+
+@partial(jax.jit, static_argnames=_STATIC + ("threshold_angle",))
+def openness_counts_pallas(Z, cellsize=1.0, lookup_pixels=1,
+                           threshold_angle=1.0, block=DEFAULT_BLOCK,
+                           interpret=None, fast=False, how_fast=20):
+    """(num_pos, num_neg) uint8 direction counts for geomorphons
+    (``visibility.count_openness`` up to f32 decision ties)."""
+    return _single(Z, lookup_pixels, block, "counts", cellsize, fast,
+                   how_fast, interpret, threshold_deg=threshold_angle)
+
+
+@partial(jax.jit, static_argnames=_STATIC + ("threshold_angle",))
+def geomorphons_pallas(Z, cellsize=1.0, lookup_pixels=1,
+                       threshold_angle=1.0, block=DEFAULT_BLOCK,
+                       interpret=None, fast=False, how_fast=20):
+    """Geomorphon classes 1-10 with the J&S select fused into the
+    kernel (``visibility.geomorphons`` without the enhance pass)."""
+    (G,) = _single(Z, lookup_pixels, block, "classes", cellsize, fast,
+                   how_fast, interpret, threshold_deg=threshold_angle)
+    return G
+
+
+@partial(jax.jit, static_argnames=_STATIC)
+def openness_pallas(Z, cellsize=1.0, lookup_pixels=1,
+                    block=DEFAULT_BLOCK, interpret=None, fast=False,
+                    how_fast=20):
+    """(positive, negative) Yokoyama openness in degrees from one
+    ladder pass, reduced over the 8 directions in-kernel (reference
+    openness neilpy.py:1325-1356).  atan runs in the kernel, so the
+    result is within a few ulp of the XLA epilogue, not bit-equal."""
+    pos_sum, neg_sum = _single(Z, lookup_pixels, block, "openness",
+                               cellsize, fast, how_fast, interpret)
     k = jnp.float32(180.0 / np.pi / 8.0)
     return pos_sum * k, neg_sum * k
 
 
-@partial(jax.jit, static_argnames=("lookup_pixels", "tile", "interpret",
-                                   "cellsize", "specialize"))
-def skyview_pallas(Z, cellsize=1.0, lookup_pixels=1, tile=(256, 1024),
-                   interpret=None, specialize=None):
-    """Skyview factor from the fused in-kernel reduction:
-    1 - mean_d sin(atan(max(mx_d, 0))) with the algebraic
-    sin(atan(t)) = t/sqrt(1+t^2) — one HBM plane write (reference
-    skyview_factor neilpy.py:1360-1384)."""
-    (s,) = _reduced_call(Z, cellsize, lookup_pixels, tile, interpret,
-                         "svf", specialize=specialize)
+@partial(jax.jit, static_argnames=_STATIC)
+def skyview_pallas(Z, cellsize=1.0, lookup_pixels=1, block=DEFAULT_BLOCK,
+                   interpret=None, fast=False, how_fast=20):
+    """Skyview factor 1 - mean_d t/sqrt(1+t^2), t = max(mx_d, 0),
+    reduced in-kernel (reference skyview_factor neilpy.py:1360-1384)."""
+    (s,) = _single(Z, lookup_pixels, block, "svf", cellsize, fast,
+                   how_fast, interpret)
     return 1.0 - s * jnp.float32(0.125)
 
 
-@partial(jax.jit, static_argnames=("lookup_pixels", "tile", "interpret",
-                                   "cellsize", "threshold_angle",
-                                   "use_negative_openness",
-                                   "specialize"))
+@partial(jax.jit, static_argnames=_STATIC + ("threshold_angle",
+                                             "use_negative_openness"))
 def ternary_pallas(Z, cellsize=1.0, lookup_pixels=1, threshold_angle=0.0,
-                   use_negative_openness=True, tile=(256, 1024),
-                   interpret=None, specialize=None):
-    """Base-3 packed 8-direction ternary code (uint16) from the fused
-    in-kernel reduction — digits compared exactly in tangent space
-    (reference ternary_pattern_from_openness neilpy.py:1404-1430)."""
-    (tc,) = _reduced_call(Z, cellsize, lookup_pixels, tile, interpret,
-                          "ternary", threshold_deg=float(threshold_angle),
-                          neg_mode=bool(use_negative_openness),
-                          specialize=specialize)
+                   use_negative_openness=True, block=DEFAULT_BLOCK,
+                   interpret=None, fast=False, how_fast=20):
+    """Base-3 packed 8-direction ternary code (uint16), digits compared
+    exactly in tangent space (reference ternary_pattern_from_openness
+    neilpy.py:1404-1430)."""
+    (tc,) = _single(Z, lookup_pixels, block, "ternary", cellsize, fast,
+                    how_fast, interpret, threshold_deg=threshold_angle,
+                    neg_mode=use_negative_openness)
     return tc.astype(jnp.uint16)
 
 
 def openness_counts_pallas_block(block_haloed, origin, global_shape,
                                  lookup_pixels, cellsize=1.0,
-                                 threshold_angle=1.0, tile=None,
+                                 threshold_angle=1.0, block=DEFAULT_BLOCK,
                                  interpret=None, vma=None, fast=False,
                                  how_fast=20):
-    """Per-device entry for shard_map use: ``block_haloed`` is a local
-    block already surrounded by an R-wide halo of *real neighbour
-    data* (NaN beyond the mesh / raster); ``origin`` is the global
-    (row, col) of the block core (traced ints).  Returns core-shaped
-    (num_pos, num_neg) uint8 counts identical to the single-device
-    kernel over the same global raster."""
+    """Per-device entry for ``shard_map``: ``block_haloed`` is a local
+    block already surrounded by an R-wide halo of real neighbour data
+    (NaN beyond the raster); ``origin`` is the global (row, col) of the
+    block core (traced ints), passed to the kernel as an ordinary input.
+    Returns core-shaped (num_pos, num_neg) uint8 counts identical to
+    the single-device kernel over the same global raster."""
     R = int(lookup_pixels)
-    bh = block_haloed.shape[0] - 2 * R
-    bw = block_haloed.shape[1] - 2 * R
-    RR = -(-R // 8) * 8
-    RC = -(-R // 128) * 128
-    if tile is None:
-        tile = (min(256, -(-bh // 8) * 8), min(512, -(-bw // 128) * 128))
-    TH, TW = tile
-    Hp = -(-bh // TH) * TH
-    Wp = -(-bw // TW) * TW
-    # grow the R halo to the aligned (RR, RC) halo + tile alignment
-    Zp = jnp.pad(jnp.asarray(block_haloed, dtype=jnp.float32),
-                 ((RR - R, RR - R + (Hp - bh)),
-                  (RC - R, RC - R + (Wp - bw))),
-                 constant_values=jnp.nan)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    org = jnp.stack([jnp.asarray(origin[0], dtype=jnp.int32),
-                     jnp.asarray(origin[1], dtype=jnp.int32)])
-    H, W = int(global_shape[0]), int(global_shape[1])
+    core = (block_haloed.shape[0] - 2 * R, block_haloed.shape[1] - 2 * R)
+    org = jnp.stack([jnp.asarray(origin[0], jnp.int32),
+                     jnp.asarray(origin[1], jnp.int32)])
     ladder = _fast_ladder(R, how_fast) if fast else None
-    num_pos, num_neg = _counts_call(Zp, org, TH, TW, R, RR, RC, H, W,
-                                    float(cellsize),
-                                    float(threshold_angle), interpret,
-                                    vma=vma, ladder=ladder,
-                                    ext=(RR - R, bh + 2 * R,
-                                         RC - R, bw + 2 * R))
-    return (num_pos[:bh, :bw].astype(jnp.uint8),
-            num_neg[:bh, :bw].astype(jnp.uint8))
-
-
-def geomorphons_pallas(Z, cellsize=1, lookup_pixels=1, threshold_angle=1,
-                       tile=(256, 1024), fast=False, how_fast=20,
-                       specialize=None):
-    """Geomorphon classes from the Pallas scan (drop-in fast path for
-    ``ops.visibility.geomorphons`` without the enhance mode; the
-    'fast' progressive ladder runs as unrolled static slices).
-    ``specialize`` selects the 9-patch static boundary specialization,
-    ``None`` auto-resolving as in ``openness_counts_pallas``."""
-    from .visibility import classes_from_counts
-    num_pos, num_neg = openness_counts_pallas(
-        Z, cellsize=float(cellsize), lookup_pixels=int(lookup_pixels),
-        threshold_angle=float(threshold_angle), tile=tile,
-        fast=bool(fast), how_fast=int(how_fast),
-        specialize=specialize)
-    return classes_from_counts(num_pos, num_neg)
+    return _ladder_call(block_haloed, org, core_shape=core,
+                        global_shape=global_shape, R=R, block=block,
+                        mode="counts", cellsize=cellsize,
+                        threshold_deg=threshold_angle, ladder=ladder,
+                        interpret=interpret, vma=vma)

@@ -4,8 +4,8 @@ Reference: neilpy/neilpy.py:1110-1166 — edges snapped to the cellsize
 with a half-cell margin, a north-up affine, inverse-affine floor
 binning, then a pandas ``groupby(flat_index).min()/.max()`` scatter.
 
-TPU-native design
------------------
+Design
+------
 * Exact path: bin-index computation in **float64 on host** (numpy) —
   UTM coordinates (~1e5-1e6) with metre cells cannot survive f32
   without misbinning points near cell edges.
@@ -14,13 +14,12 @@ TPU-native design
   only the grid extent, so they are f32-safe, and the floor/clip/ravel
   binning fuses with the reduction in a single device program.
 * Two reduction kernels, selected by ``method``:
-  - ``"scatter"`` (default): ``array.at[idx].min/max`` — XLA:TPU
-    lowers this well (measured 46 Mpts/s steady at 2M pts on v5e,
-    sub-second compile).
+  - ``"scatter"`` (default): ``array.at[idx].min/max`` (atomics
+    on the GPU).
   - ``"sort"``: key-sort the (bin, z) pairs, segmented min/max via
     ``lax.associative_scan``, then gather per-cell results with a
     ``searchsorted`` — a scatter-free alternative (useful on backends
-    where scatter serializes; measured slower than scatter on v5e).
+    where scatter serializes).
   min/max are exact in any float width, so the f32 device reduction
   bit-matches the f64 host groupby whenever inputs are f32-representable.
 * ``bin_points`` is exposed separately so sharded pipelines can bin
@@ -145,8 +144,8 @@ def _segment_reduce_sorted(idx, z, n_cells, bin_type):
     """Sort-based segment min/max: key-sort the (bin, z) pairs, run a
     segmented extremum ``associative_scan``, and gather each cell's
     segment tail via ``searchsorted``.  Equivalent to the scatter path
-    but built entirely from sort/scan/gather, which lower to the TPU's
-    fast paths (no serialized scatter updates)."""
+    but built entirely from sort/scan/gather, with no serialized scatter
+    updates."""
     combine = jnp.maximum if bin_type == "max" else jnp.minimum
     sidx, sz = lax.sort((idx, z), num_keys=1)
     starts = jnp.concatenate([jnp.ones((1,), bool),
@@ -359,7 +358,7 @@ def create_dem_from_las(filename, cellsize=1, bin_type="max",
     keep (e.g. ``(2,)`` for ground-only).  ``bbox`` and ``stride``
     filter/decimate inside the native decoder.  Returns (I, t).
 
-    TPU-native extension (no reference equivalent: neilpy users chain
+    Extension (no reference equivalent: neilpy users chain
     read_las -> create_dem, neilpy.py:903/1110, materializing the
     whole cloud).
     """
@@ -367,18 +366,19 @@ def create_dem_from_las(filename, cellsize=1, bin_type="max",
                                  read_las_chunks)
     if not native_available():
         # fallback: whole-file python reader + in-memory gridding
-        from ..io.las import read_las
-        _, df = read_las(filename)
+        from ..io.las import read_las_columns
+        _, df = read_las_columns(filename)
+        x, y = df["x"], df["y"]
+        sel = np.arange(x.size)
         if bbox is not None:
-            keep = ((df.x >= bbox[0]) & (df.x <= bbox[1])
-                    & (df.y >= bbox[2]) & (df.y <= bbox[3]))
-            df = df[keep]
-        if stride > 1:
-            df = df.iloc[::stride]
+            sel = sel[(x >= bbox[0]) & (x <= bbox[1])
+                      & (y >= bbox[2]) & (y <= bbox[3])]
+        sel = sel[::stride]
         if classes is not None:
-            df = df[np.isin(np.asarray(df["class"]),
-                            np.asarray(list(classes)))]
-        return create_dem(df.x, df.y, df.z, cellsize=cellsize,
+            sel = sel[np.isin(df["class"][sel],
+                              np.asarray(list(classes)))]
+        return create_dem(df["x"][sel], df["y"][sel], df["z"][sel],
+                          cellsize=cellsize,
                           bin_type=bin_type, edges=edges,
                           inpaint=inpaint, device_bin=True)
     if bin_type not in ("max", "min"):

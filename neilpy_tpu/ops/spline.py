@@ -1,5 +1,5 @@
 """Bicubic spline interpolation on a uniform grid, evaluated at
-scattered points — the TPU-native equivalent of scipy's
+scattered points — the device equivalent of scipy's
 ``RectBivariateSpline(kx=3, ky=3, s=0)`` used by SMRF to lift the
 provisional DTM back onto the point cloud (reference:
 neilpy/neilpy.py:1768-1790).

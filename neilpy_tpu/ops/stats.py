@@ -7,14 +7,13 @@ hungarian_algorithm 2724-2731, bdr_bootstrap 2735-2745.  Moran's I is
 new surface area (BASELINE config 5) built on the same counted-
 convolution machinery.
 
-TPU-native design: the reference's per-pixel ``generic_filter``
+Design: the reference's per-pixel ``generic_filter``
 neighbourhood sums (its hottest statistical loop, neilpy.py:380-385)
 are *footprint sums*.  Footprints are boolean
 masks (generic_filter semantics: no weights, no kernel flip), computed
 by the run-decomposed power-of-2 sliding-sum in
-``surface.binary_footprint_sum`` — O(rows·log width) whole-array adds;
-the single-channel conv lowering runs on the VPU and measured 222x
-slower at disk r=13 on v5e.  The normal-distribution tail is evaluated with
+``surface.binary_footprint_sum`` — O(rows·log width) whole-array adds
+instead of a single-channel convolution.  The normal-distribution tail is evaluated with
 ``erfc``; significance binning is elementwise.
 """
 
@@ -61,8 +60,7 @@ def rasterGi(X, footprint=1, mode="nearest", apply_correction=False,
     ArcGIS-style significance bins {0, ±1, ±2, ±3}.
 
     The neighbourhood count and sum (reference's generic_filter hot
-    loop) are computed as footprint convolutions — exact, and MXU-
-    friendly for large structuring elements.
+    loop) are computed as exact footprint sums.
 
     An explicit ``footprint`` array is treated as a boolean MASK
     (``fp != 0``), matching the reference's generic_filter semantics —
@@ -240,7 +238,7 @@ def shi_landslides(dem, radii, cellsize=1):
 
     The reference forks a joblib pool; here each radius is one jitted
     convolution-based Gi* on device, so the 'parallelism' is simply the
-    TPU's own throughput (and radii could be vmapped if ever hot).
+    device's own throughput (and radii could be vmapped if ever hot).
     """
     k, kprof, kplan, ktan, klong, kcross = evans_curvature(dem, cellsize)
     sig_bins = []

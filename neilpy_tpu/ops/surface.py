@@ -3,7 +3,7 @@
 All functions are pure jnp graphs built from the shared shift/gradient
 primitives in ``core.shift`` — element-wise algebra over a handful of
 shifted copies, which XLA fuses into a single memory-bound pass.  They
-run identically on TPU, on the CPU backend, and inside ``shard_map``
+run identically on the GPU, on the CPU backend, and inside ``shard_map``
 halo-tiled execution (halo radius 1, or ``lookup_pixels`` for
 ``scaled_morphometry``).
 
@@ -39,8 +39,10 @@ __all__ = [
 
 # ----------------------------------------------------------------------
 # Convolution helper: footprint correlation with edge-replicate padding
-# (scipy.ndimage.convolve mode='nearest').  Lowered to lax.conv so big
-# footprints ride the MXU.
+# (scipy.ndimage.convolve mode='nearest').  Lowered to lax.conv at
+# HIGHEST precision: a float32 convolution may otherwise run in TF32 on
+# the GPU, which keeps ~3 decimal digits (std's E[x^2] trick and TPI
+# difference large near-equal terms).
 # ----------------------------------------------------------------------
 def convolve2d_nearest(X, kernel, mode="nearest"):
     X = jnp.asarray(X, dtype=jnp.float32)
@@ -58,6 +60,7 @@ def convolve2d_nearest(X, kernel, mode="nearest"):
     out = jax.lax.conv_general_dilated(
         Xp[None, None, :, :], kflip[None, None, :, :],
         window_strides=(1, 1), padding="VALID",
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32)
     return out[0, 0]
 
@@ -70,9 +73,8 @@ def binary_footprint_sum(X, footprint, mode="nearest"):
     Decomposes the footprint into horizontal runs per row and builds
     each run's sliding sum from power-of-2 partials: O(rows * log
     width) whole-array adds instead of the O(rows * width) MACs of
-    the conv lowering, which XLA executes on the VPU for single-
-    channel spatial kernels (measured 3 Mpix/s at disk r=13 on v5e vs
-    ~500 Mpix/s for this decomposition)."""
+    the conv lowering, which is a poor fit for single-channel spatial
+    kernels."""
     X = jnp.asarray(X, dtype=jnp.float32)
     fp = np.asarray(footprint) != 0
     kh, kw = fp.shape

@@ -18,7 +18,6 @@ import os
 import datetime
 
 import numpy as np
-import pandas as pd
 
 __all__ = ["exif_dict_to_dd", "dd_to_exif_tuple", "load_exif_dict",
            "read_geotags_into_df", "ppk_images"]
@@ -124,6 +123,7 @@ def dd_to_exif_tuple(dd):
 def read_geotags_into_df(fns, return_datetimes=True):
     """Batch EXIF geotags -> DataFrame (parity: neilpy.py:2205-2227,
     modernised off the removed ``df.append`` API)."""
+    import pandas as pd
     from PIL import Image
     rows = []
     for fn in fns:

@@ -15,7 +15,6 @@ from __future__ import annotations
 import datetime
 
 import numpy as np
-import pandas as pd
 
 from ..geo.proj import geodesic_inverse
 
@@ -29,6 +28,7 @@ def read_llh(fn, return_datetimes=True, skiprows=0, comment="%"):
     """Emlid Reach / RTKLIB LLH log -> DataFrame (parity:
     neilpy.py:2132-2150).  Q=1 fix, 2 float, 3 sbas, 4 dgps, 5 single,
     6 ppp.  GPS->UTC applies the -18 s leap-second offset."""
+    import pandas as pd
     df = pd.read_csv(fn, header=None, sep=r"\s+", skiprows=skiprows,
                      comment=comment)
     df = df.rename({0: "date_gps", 1: "time_gps", 2: "lat", 3: "lon",
@@ -69,6 +69,7 @@ def _within_second_increments(series):
     """Occurrence count per timestamp plus running index within each
     run of equal consecutive timestamps (vectorised replacement for
     the reference's python loop, neilpy.py:2257-2264)."""
+    import pandas as pd
     df = pd.DataFrame({"key": series.to_numpy()})
     counts = df.groupby("key")["key"].transform("size")
     new_run = df["key"].ne(df["key"].shift())
@@ -80,6 +81,7 @@ def _within_second_increments(series):
 def fix_gopro_bad_time_resolution(series):
     """De-alias 1 s-floored GoPro GPS timestamps (parity:
     neilpy.py:2239-2275)."""
+    import pandas as pd
     counts, increment = _within_second_increments(series)
     add_to = np.zeros(len(series))
     add_to[(counts >= 2) & (increment == 2)] = .5
@@ -93,6 +95,7 @@ def fix_gopro_bad_time_resolution2(series, gpstimeoffset):
     """Uniform within-second spreading variant (parity:
     neilpy.py:2278-2316): add (i/k) - 1/(2k) seconds for the i-th of k
     photos sharing a floored timestamp, plus the GPS-UTC offset."""
+    import pandas as pd
     counts, increment = _within_second_increments(series)
     add_to = (increment / counts) - (1 / (2 * counts))
     return series.reset_index(drop=True) + pd.to_timedelta(
@@ -104,6 +107,7 @@ def posprocessor(survey_df, pos_df, keep_Q=(1, 2, 5),
                  end_field="collection end"):
     """Median GNSS position per survey time window (parity:
     neilpy.py:2558-2583)."""
+    import pandas as pd
     survey_df = survey_df.copy()
     survey_df.columns = [str.lower(n) for n in survey_df.columns.values]
     start_field = start_field.lower()

@@ -4,7 +4,6 @@ set_print_options neilpy.py:2397-2400)."""
 from __future__ import annotations
 
 import numpy as np
-import pandas as pd
 
 __all__ = ["voxelize", "write_voxel_stl", "set_print_options"]
 
@@ -128,6 +127,7 @@ def voxelize(filename, x, y, z, resolution, bottom_fill=True, threshold=1,
 def set_print_options(places=2, width=0):
     """numpy/pandas float print formatting (parity:
     neilpy.py:2397-2400)."""
+    import pandas as pd
     fmt = "{0:" + str(width) + "." + str(places) + "f}"
     np.set_printoptions(formatter={"float": lambda v: fmt.format(v)})
     pd.options.display.float_format = fmt.format

@@ -4,7 +4,7 @@ test oracles.
 These are written from the algorithm descriptions (Yokoyama openness,
 Horn slope, Z&T curvature, D'Errico spring inpainting, ...) and from
 the behavioural notes in SURVEY.md; they serve as slow, trusted oracles
-for the jitted TPU kernels.  scipy/sklearn are allowed here (tests
+for the jitted device kernels.  scipy/sklearn are allowed here (tests
 only).
 """
 
@@ -245,7 +245,7 @@ def np_ladder_margin(Zi, windows, cellsize=1, slope_threshold=.15):
 
 def np_smrf(x, y, z, cellsize, windows, slope_threshold,
             elevation_threshold, elevation_scaler, low_filter_slope=5,
-            return_margin=False):
+            return_margin=False, return_point_margin=False):
     """Full f64 SMRF oracle composed from the scipy building blocks
     (pandas-style groupby binning, direct-solve spring inpaint, scipy
     disk opening ladder, FITPACK RectBivariateSpline point lift) — the
@@ -253,7 +253,9 @@ def np_smrf(x, y, z, cellsize, windows, slope_threshold,
     (neilpy.py:1685-1808).  Reproduces the published samp12 total
     error of 3.091% exactly.  ``return_margin=True`` additionally
     returns the per-cell ladder decision margin (see
-    ``np_ladder_margin``)."""
+    ``np_ladder_margin``); ``return_point_margin=True`` appends the
+    per-point margin ``| |ev - z| - req |`` of the final elevation
+    test."""
     from scipy.interpolate import RectBivariateSpline
     from neilpy_tpu.ops.pointgrid import bin_points
 
@@ -283,6 +285,114 @@ def np_smrf(x, y, z, cellsize, windows, slope_threshold,
     sv = RectBivariateSpline(np.arange(ny) + .5, np.arange(nx) + .5,
                              np.sqrt(gy ** 2 + gx ** 2)).ev(r, c)
     req = elevation_threshold + elevation_scaler * sv
+    out = (np.abs(ev - z64) > req, obj)
     if return_margin:
-        return np.abs(ev - z64) > req, obj, margin
-    return np.abs(ev - z64) > req, obj
+        out += (margin,)
+    if return_point_margin:
+        out += (np.abs(np.abs(ev - z64) - req),)
+    return out
+
+
+# ---- decision-margin audit of the lossy uint16 mosaic uplink --------
+# (``upload_dtype='uint16'``: affine lattice over the global range,
+# quantum q = (max-min)/65534).  A quantization perturbs every elevation
+# by <= q/2, so a pos-neg openness difference moves by <=
+# 2*rad2deg(q/cellsize); a class flip whose f64 margin exceeds that
+# bound could not have been caused by quantization.
+
+# direction offsets / step weights must match neilpy_tpu.core.shift
+OFFSETS = None
+STEP_LENGTH = None
+
+
+def _load_conventions():
+    global OFFSETS, STEP_LENGTH
+    if OFFSETS is None:
+        from neilpy_tpu.core.shift import OFFSETS as O, STEP_LENGTH as S
+        OFFSETS, STEP_LENGTH = O, S
+
+
+def pointwise_margins(Z, rows, cols, cellsize=1.0, lookup_pixels=1,
+                      threshold_angle=1.0):
+    """f64 geomorphon decision margins at selected pixels only.
+
+    Returns ``margins`` (degrees), shape ``(len(rows),)``: the smallest
+    |O_d ∓ threshold| over the 8 directions, where O_d is the
+    single-direction positive-minus-negative openness difference of the
+    reference ladder.  Out-of-range ladder steps contribute ratio 0
+    (angle 90°), the reference's ashift edge-replication semantics.
+    Vectorized over pixels, so a few thousand pixels at R=50 cost
+    milliseconds where a full-raster f64 oracle would run for hours."""
+    _load_conventions()
+    Z = np.asarray(Z, dtype=np.float64)
+    H, W = Z.shape
+    r = np.asarray(rows, dtype=np.int64)
+    c = np.asarray(cols, dtype=np.int64)
+    Zp = Z[r, c]
+    margin = np.full(r.shape, np.inf)
+    t = float(threshold_angle)
+    for d in range(8):
+        dr, dc = OFFSETS[d]
+        w = float(STEP_LENGTH[d])
+        pos = np.full(r.shape, np.inf)
+        neg = np.full(r.shape, np.inf)
+        for L in range(1, int(lookup_pixels) + 1):
+            rr = r + dr * L
+            cc = c + dc * L
+            valid = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
+            val = Z[np.clip(rr, 0, H - 1), np.clip(cc, 0, W - 1)]
+            ratio = np.where(valid, (val - Zp) / (cellsize * w * L), 0.0)
+            ang_p = np.pi / 2 - np.arctan(ratio)
+            ang_n = np.pi / 2 - np.arctan(-ratio)
+            # NaN never replaces the running min (reference semantics)
+            pos = np.where(np.isnan(ang_p), pos, np.minimum(pos, ang_p))
+            neg = np.where(np.isnan(ang_n), neg, np.minimum(neg, ang_n))
+        O = np.rad2deg(pos) - np.rad2deg(neg)
+        margin = np.minimum(margin, np.minimum(np.abs(O - t),
+                                               np.abs(O + t)))
+    return margin
+
+
+def margin_bound_deg(q, cellsize):
+    """Max angular movement of a pos-neg openness difference under a
+    per-sample elevation perturbation of one quantization quantum
+    ``q``: 2 * rad2deg(q / cellsize) (atan is 1-Lipschitz; L=1, w=1 is
+    the worst ladder step)."""
+    return float(2.0 * np.rad2deg(q / cellsize))
+
+
+def audit_flips(Z, G_exact, G_quant, qlo, qhi, cellsize,
+                lookup_pixels, threshold_angle, interior=None,
+                f32_allowance=0.01):
+    """Audit every interior class flip between the exact-transport and
+    quantized-transport geomorphon planes.  Returns a dict with the
+    agreement rate, flip count, max f64 margin over flipped pixels,
+    the quantization margin bound, and the pass verdict
+    (max_margin <= bound + f32_allowance degrees)."""
+    G_exact = np.asarray(G_exact)
+    G_quant = np.asarray(G_quant)
+    H, W = G_exact.shape
+    flip = G_exact != G_quant
+    R = int(lookup_pixels) if interior is None else int(interior)
+    inner = np.zeros_like(flip)
+    inner[R:H - R, R:W - R] = True
+    rows, cols = np.nonzero(flip & inner)
+    q = (float(qhi) - float(qlo)) / 65534.0
+    bound = margin_bound_deg(q, cellsize)
+    if len(rows):
+        margins = pointwise_margins(Z, rows, cols, cellsize,
+                                    lookup_pixels, threshold_angle)
+        max_margin = float(np.max(margins))
+    else:
+        max_margin = 0.0
+    return {
+        "agreement": float(np.mean(G_exact == G_quant)),
+        "n_flips_interior": int(len(rows)),
+        "n_flips_total": int(flip.sum()),
+        "quantum": q,
+        "margin_bound_deg": bound,
+        "f32_allowance_deg": f32_allowance,
+        "max_flip_margin_deg": max_margin,
+        "all_flips_within_bound": bool(max_margin
+                                       <= bound + f32_allowance),
+    }

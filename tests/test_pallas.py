@@ -1,5 +1,6 @@
-"""Pallas kernel parity vs the XLA reference path (interpret mode on
-the CPU backend; the same kernel compiles via Mosaic on TPU)."""
+"""Pallas ladder kernel parity vs the XLA engine (interpret mode on the
+CPU backend; the same kernel compiles through Triton on the GPU, and
+its Triton lowering is checked here without a card)."""
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ def Z(rng=None):
 def test_counts_match_xla(Z, threshold):
     np_p, nn_p = openness_counts_pallas(Z, cellsize=2.0, lookup_pixels=7,
                                         threshold_angle=threshold,
-                                        tile=(64, 64))
+                                        block=(64, 64))
     np_x, nn_x = count_openness(Z, 2.0, 7, threshold)
     np.testing.assert_array_equal(np.asarray(np_p), np.asarray(np_x))
     np.testing.assert_array_equal(np.asarray(nn_p), np.asarray(nn_x))
@@ -30,7 +31,7 @@ def test_counts_match_xla(Z, threshold):
 def test_classes_match_xla(Z, lookup):
     G_p = np.asarray(geomorphons_pallas(Z, cellsize=2.0,
                                         lookup_pixels=lookup,
-                                        tile=(64, 64)))
+                                        block=(64, 64)))
     G_x = np.asarray(geomorphons(Z, cellsize=2.0, lookup_pixels=lookup))
     np.testing.assert_array_equal(G_p, G_x)
 
@@ -39,7 +40,7 @@ def test_nan_terrain(Z):
     Zn = Z.copy()
     Zn[30:40, 50:70] = np.nan
     G_p = np.asarray(geomorphons_pallas(Zn, lookup_pixels=5,
-                                        tile=(64, 64)))
+                                        block=(64, 64)))
     G_x = np.asarray(geomorphons(Zn, lookup_pixels=5))
     np.testing.assert_array_equal(G_p, G_x)
 
@@ -50,7 +51,7 @@ def test_fast_ladder_matches_xla(Z, lookup):
     visits the same L levels as the XLA scan -> identical classes."""
     G_p = np.asarray(geomorphons_pallas(Z, cellsize=2.0,
                                         lookup_pixels=lookup, fast=True,
-                                        tile=(64, 64)))
+                                        block=(64, 64)))
     G_x = np.asarray(geomorphons(Z, cellsize=2.0, lookup_pixels=lookup,
                                  fast=True, engine="xla"))
     np.testing.assert_array_equal(G_p, G_x)
@@ -62,98 +63,31 @@ def test_fast_ladder_nan_and_boundary():
     Z = rng.normal(size=(640, 640)).cumsum(axis=0).astype(np.float32)
     Z[200:210, 300:320] = np.nan
     G_p = np.asarray(geomorphons_pallas(Z, cellsize=2, lookup_pixels=23,
-                                        fast=True, tile=(64, 128)))
+                                        fast=True, block=(64, 128)))
     G_x = np.asarray(geomorphons(Z, cellsize=2, lookup_pixels=23,
                                  fast=True, engine="xla"))
     np.testing.assert_array_equal(G_p, G_x)
 
 
 def test_nan_hole_in_safe_tile():
-    """A nodata hole deep in the raster interior, where the tile's read
-    window is geometrically clean: the maskless interior fast path must
-    still be bypassed (via the per-tile NaN grid) or every pixel whose
-    ray crosses the hole is misclassified.  Regression: the r2 interior
-    fast path shipped without the NaN grid and failed exactly here
-    (54 wrong pixels on this fixture)."""
+    """A nodata hole deep in the raster interior, far from every edge:
+    the compare-select ladder must skip the hole's NaN reads or every
+    pixel whose ray crosses it is misclassified."""
     rng = np.random.default_rng(5)
     Z = rng.normal(size=(640, 640)).cumsum(axis=0).astype(np.float32)
     Z[200:210, 300:320] = np.nan
     G_p = np.asarray(geomorphons_pallas(Z, cellsize=2, lookup_pixels=2,
-                                        tile=(64, 128)))
+                                        block=(64, 128)))
     G_x = np.asarray(geomorphons(Z, cellsize=2, lookup_pixels=2,
                                  engine="xla"))
     np.testing.assert_array_equal(G_p, G_x)
-
-
-@pytest.mark.parametrize("fast", [False, True])
-def test_9patch_specialization_matches_dynamic(fast):
-    """The static 9-patch boundary specialization must be bit-identical
-    to the dynamic (runtime-cond) kernel — same per-direction routing
-    predicate, folded at compile time — including across a NaN hole in
-    a geometrically-safe tile and non-tile-aligned padding rows."""
-    rng = np.random.default_rng(11)
-    Z = rng.normal(size=(130, 260)).cumsum(axis=1).astype(np.float32)
-    Z[60:64, 120:130] = np.nan
-    kw = dict(cellsize=3.0, lookup_pixels=12, threshold_angle=1.0,
-              tile=(40, 128), fast=fast)
-    np_d, nn_d = openness_counts_pallas(Z, **kw)
-    np_s, nn_s = openness_counts_pallas(Z, specialize=True, **kw)
-    np.testing.assert_array_equal(np.asarray(np_d), np.asarray(np_s))
-    np.testing.assert_array_equal(np.asarray(nn_d), np.asarray(nn_s))
-
-
-def test_9patch_fused_reductions_match_dynamic():
-    """specialize=True parity for the fused in-kernel reductions
-    (openness / skyview / ternary share ``_reduced_kernel``)."""
-    from neilpy_tpu.ops.pallas_scan import (openness_pallas,
-                                            skyview_pallas,
-                                            ternary_pallas)
-    rng = np.random.default_rng(13)
-    Z = (rng.random((96, 260)) * 100).astype(np.float32)
-    Z[40:44, 100:110] = np.nan
-    kw = dict(cellsize=2.0, lookup_pixels=10, tile=(32, 128))
-    for fn, extra in [(openness_pallas, {}),
-                      (skyview_pallas, {}),
-                      (ternary_pallas, {"threshold_angle": 1.0})]:
-        a = fn(Z, **kw, **extra)
-        b = fn(Z, **kw, **extra, specialize=True)
-        if not isinstance(a, tuple):
-            a, b = (a,), (b,)
-        for x, y in zip(a, b):
-            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-
-
-def test_specialize_default_resolution():
-    """``specialize=None`` resolves to the measured-best default: ON
-    only for compiled (non-interpret) EXACT ladders; interpret mode
-    and the unrolled fast ladder stay dynamic (see
-    ``_resolve_specialize``).  Explicit values pass through."""
-    from neilpy_tpu.ops.pallas_scan import _resolve_specialize
-    assert _resolve_specialize(None, interpret=False, fast=False) is True
-    assert _resolve_specialize(None, interpret=True, fast=False) is False
-    assert _resolve_specialize(None, interpret=False, fast=True) is False
-    assert _resolve_specialize(None, interpret=True, fast=True) is False
-    assert _resolve_specialize(True, interpret=True, fast=True) is True
-    assert _resolve_specialize(False, interpret=False, fast=False) is False
-
-
-def test_9patch_single_region_degenerate():
-    """A raster smaller than one ladder reach in every direction: the
-    9-patch partition collapses to a single all-masked region."""
-    rng = np.random.default_rng(12)
-    Z = rng.normal(size=(24, 40)).cumsum(axis=0).astype(np.float32)
-    kw = dict(cellsize=1.0, lookup_pixels=30, tile=(24, 128))
-    np_d, nn_d = openness_counts_pallas(Z, **kw)
-    np_s, nn_s = openness_counts_pallas(Z, specialize=True, **kw)
-    np.testing.assert_array_equal(np.asarray(np_d), np.asarray(np_s))
-    np.testing.assert_array_equal(np.asarray(nn_d), np.asarray(nn_s))
 
 
 def test_non_tile_aligned_shape():
     r = np.random.default_rng(3)
     Z = r.normal(size=(70, 90)).cumsum(axis=0).astype(np.float32)
     G_p = np.asarray(geomorphons_pallas(Z, lookup_pixels=4,
-                                        tile=(64, 64)))
+                                        block=(64, 64)))
     G_x = np.asarray(geomorphons(Z, lookup_pixels=4))
     np.testing.assert_array_equal(G_p, G_x)
 
@@ -162,7 +96,7 @@ def test_non_tile_aligned_shape():
 def test_lookup_larger_than_tile(Z):
     # halo (R=40) far exceeds the 32-px tile: windows span many tiles
     G_p = np.asarray(geomorphons_pallas(Z[:64, :96], lookup_pixels=40,
-                                        tile=(32, 32)))
+                                        block=(32, 32)))
     G_x = np.asarray(geomorphons(Z[:64, :96], lookup_pixels=40))
     np.testing.assert_array_equal(G_p, G_x)
 
@@ -203,6 +137,7 @@ def test_openness_engine_param(rng):
 
 
 def test_directional_extrema_pallas_matches_xla(rng):
+    """Same division, same skips: the extrema are bit-identical."""
     from neilpy_tpu.ops.pallas_scan import directional_extrema_pallas
     from neilpy_tpu.ops.visibility import directional_ratio_extrema
     Z = rng.normal(size=(40, 60)).cumsum(axis=1).astype(np.float32)
@@ -210,10 +145,8 @@ def test_directional_extrema_pallas_matches_xla(rng):
                                             lookup_pixels=7)
     mx_x, mn_x, seen = directional_ratio_extrema(Z, cellsize=1.5,
                                                  lookup_pixels=7)
-    np.testing.assert_allclose(np.asarray(mx_p), np.asarray(mx_x),
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(mn_p), np.asarray(mn_x),
-                               atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(mx_p), np.asarray(mx_x))
+    np.testing.assert_array_equal(np.asarray(mn_p), np.asarray(mn_x))
     np.testing.assert_array_equal(np.asarray(mx_p) > -np.inf,
                                   np.asarray(seen))
 
@@ -229,27 +162,9 @@ def test_ternary_pattern_engine(rng):
 
 
 class TestFusedReduction:
-    """The fused in-kernel reduction kernels (VERDICT r3 #4): openness
-    / skyview / ternary reduce the 8 directional extrema inside the
-    Pallas kernel (2/1/1 HBM plane writes instead of 16).  Interpret
-    mode on CPU; the hardware check runs the same kernels via Mosaic."""
-
-    def test_atan_f32_accuracy(self):
-        """In-kernel atan (Mosaic has no atan primitive): Cephes-style
-        f32 range reduction + odd minimax polynomial must stay within
-        ~2e-7 rad of the f64 oracle across 12 decades and the special
-        values."""
-        from neilpy_tpu.ops.pallas_scan import _atan_f32
-        x = np.concatenate([
-            np.linspace(-100, 100, 40001),
-            np.logspace(-8, 8, 4001), -np.logspace(-8, 8, 4001),
-            [0.0, -0.0, np.inf, -np.inf, 1.0, -1.0,
-             0.4142135623730950, 2.414213562373095]]).astype(np.float32)
-        got = np.asarray(_atan_f32(x))
-        want = np.arctan(x.astype(np.float64))
-        assert np.max(np.abs(got - want)) < 2e-7
-        assert got[np.where(x == np.inf)[0][0]] == np.float32(np.pi / 2)
-        assert np.isnan(np.asarray(_atan_f32(np.float32(np.nan))))
+    """The fused in-kernel reductions: openness / skyview / ternary
+    reduce the 8 directional extrema inside the kernel (2/1/1 plane
+    writes instead of 16)."""
 
     def test_openness_pair_engines(self, rng):
         """openness_pair: one ladder pass, both planes, both engines;
@@ -322,12 +237,71 @@ class TestFusedReduction:
         from neilpy_tpu.ops.visibility import openness
         Z = rng.normal(size=(70, 90)).cumsum(axis=0).astype(np.float32)
         p, _ = openness_pallas(Z, cellsize=2, lookup_pixels=23,
-                               fast=True, tile=(32, 128))
+                               fast=True, block=(32, 128))
         w = np.asarray(openness(Z, cellsize=2, lookup_pixels=23,
                                 fast=True, engine="xla"))
         np.testing.assert_allclose(np.asarray(p), w, atol=1e-4)
         p2, _ = openness_pallas(Z[:64, :], lookup_pixels=40,
-                                tile=(32, 128))
+                                block=(32, 128))
         w2 = np.asarray(openness(Z[:64, :], lookup_pixels=40,
                                  engine="xla"))
         np.testing.assert_allclose(np.asarray(p2), w2, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (17, 300), (257, 129)])
+def test_block_padding_odd_shapes(shape):
+    """Odd shapes pad to whole power-of-two blocks (clamped to the
+    raster) and crop back to the XLA engine's classes exactly."""
+    from neilpy_tpu.ops.pallas_scan import _block_for, DEFAULT_BLOCK
+    r = np.random.default_rng(sum(shape))
+    Z = r.normal(size=shape).cumsum(axis=0).astype(np.float32)
+    BH, BW = _block_for(shape, DEFAULT_BLOCK)
+    assert BH <= DEFAULT_BLOCK[0] and BW <= DEFAULT_BLOCK[1]
+    assert BH >= min(shape[0], DEFAULT_BLOCK[0])
+    assert BW >= min(shape[1], DEFAULT_BLOCK[1])
+    G_p = np.asarray(geomorphons_pallas(Z, lookup_pixels=5))
+    assert G_p.shape == shape
+    np.testing.assert_array_equal(G_p, np.asarray(
+        geomorphons(Z, lookup_pixels=5, engine="xla")))
+
+
+def test_block_must_be_power_of_two(Z):
+    with pytest.raises(ValueError, match="powers of two"):
+        geomorphons_pallas(Z, lookup_pixels=3, block=(24, 64))
+
+
+def test_compiled_kernel_refused_on_cpu(Z):
+    """No quiet interpreter: a compiled kernel asked for on the CPU
+    raises instead of falling back."""
+    with pytest.raises(ValueError, match="no compiled form"):
+        openness_counts_pallas(Z, lookup_pixels=3, interpret=False)
+
+
+_MODES = {
+    "counts": lambda ps, z: ps.openness_counts_pallas(z, lookup_pixels=50),
+    "classes_fast": lambda ps, z: ps.geomorphons_pallas(
+        z, lookup_pixels=50, fast=True),
+    "extrema": lambda ps, z: ps.directional_extrema_pallas(
+        z, lookup_pixels=10),
+    "openness": lambda ps, z: ps.openness_pallas(z, lookup_pixels=10),
+    "svf": lambda ps, z: ps.skyview_pallas(z, lookup_pixels=10),
+    "ternary": lambda ps, z: ps.ternary_pallas(
+        z, lookup_pixels=10, use_negative_openness=False),
+    "block": lambda ps, z: ps.openness_counts_pallas_block(
+        z, (3, 4), (5000, 5000), 10),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+def test_kernel_lowers_to_triton(mode, monkeypatch):
+    """Every entry point lowers for CUDA through the Triton route (the
+    Python-side Triton lowering runs without a card)."""
+    import jax
+    import jax.numpy as jnp
+    from neilpy_tpu import backend
+    from neilpy_tpu.ops import pallas_scan as ps
+    monkeypatch.setattr(backend, "_device_platform", lambda: "gpu")
+    z = jnp.zeros((300, 200), jnp.float32)
+    txt = jax.jit(lambda a: _MODES[mode](ps, a)).trace(z).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert txt.count("xla.gpu.triton") == 1

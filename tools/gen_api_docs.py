@@ -24,7 +24,7 @@ jax.config.update("jax_platforms", "cpu")
 # module -> one-line role, in layer order (SURVEY.md §1)
 MODULES = [
     ("neilpy_tpu", "top-level reference-parity API (all 74 reference "
-                   "exports plus the TPU-native extensions)"),
+                   "exports plus the framework's own extensions)"),
     ("neilpy_tpu.core.grid", "grid/point primitives"),
     ("neilpy_tpu.core.affine", "affine transforms and worldfile math"),
     ("neilpy_tpu.core.shift", "the `ashift` edge-replicating shift and "
@@ -40,8 +40,10 @@ MODULES = [
     ("neilpy_tpu.ops.surface", "slope/aspect/curvature/hillshade "
                                "stencils"),
     ("neilpy_tpu.ops.visibility", "openness / skyview / geomorphons"),
-    ("neilpy_tpu.ops.pallas_scan", "Pallas VMEM ladder kernels (TPU "
-                                   "fast path)"),
+    ("neilpy_tpu.ops.pallas_scan", "Pallas ladder kernel (GPU "
+                                   "fast path, Triton)"),
+    ("neilpy_tpu.backend", "platform -> engine / interpret / cache "
+                           "choices"),
     ("neilpy_tpu.ops.pointgrid", "point-to-raster gridding "
                                  "(create_dem)"),
     ("neilpy_tpu.ops.inpaint", "springs/FDA inpainting (multigrid CG)"),
